@@ -4,8 +4,11 @@
 
 Prints ONE JSON line with the keys of the JAX package's bench.py: the
 gridder (`cuda_v6`) as metric/value/unit/vs_baseline, the degridder
-(`cuda_v7`) as degridder_*. Both are timed launch-only on the default
-problem (IDGParams.from_env(): 24,500 subgrids, 50.2 MVis). Baseline
+(`cuda_v7`) as degridder_*, and the gridded pipeline (the gridder with its
+fused iDFT epilogue, then the range grid-add into the [P, G, G] grid) as
+pipeline_*. The kernels are timed launch-only and the pipeline pass by
+pass, on the default problem (IDGParams.from_env(): 24,500 subgrids,
+50.2 MVis). One GRIDDER_VERSION feeds the headline and the pipeline. Baseline
 anchors are the reference's published V100 numbers: CUDA gridder_reference
 42.93 MVis/s, degridder_reference 28.03 MVis/s
 (res/{gridder,degridder}/Tesla_V100-*-cuda.csv). No kernel ladder and no
@@ -32,7 +35,8 @@ def main() -> int:
 
     from .config import HarnessConfig, IDGParams
     from .data import initialize_subgrids, make_perf_observation
-    from .ops.api import staged_runner
+    from .ops.api import gridded_pipeline_parts, staged_runner
+    from .ops.grid import sort_observation_blocks
     from .utils.costs import workload_costs
     from .utils.timing import time_kernel
 
@@ -52,6 +56,14 @@ def main() -> int:
     )
     fn, args = staged_runner("degridder", DEGRIDDER_VERSION, params, obs, subgrids)
     degridder_s = time_kernel(fn, *args, harness=harness).seconds
+    del fn, args, subgrids
+
+    obs_sorted, _ = sort_observation_blocks(obs, params.grid_size, params.subgrid_size)
+    pfn, pargs, gfn, pipeline_version, _ = gridded_pipeline_parts(
+        params, obs_sorted, GRIDDER_VERSION)
+    if pfn is None:
+        raise ValueError(f"gridder {GRIDDER_VERSION} has no fused pipeline form")
+    pipeline_s = time_kernel(lambda *a: gfn(pfn(*a)), *pargs, harness=harness).seconds
 
     line = {
         "metric": f"gridder_{GRIDDER_VERSION}_throughput",
@@ -64,6 +76,9 @@ def main() -> int:
         "degridder_vs_baseline": round(
             mvis / degridder_s / V100_DEGRIDDER_REFERENCE_MVIS_S, 3
         ),
+        "pipeline_metric": f"pipeline_{pipeline_version}_throughput",
+        "pipeline_value": round(mvis / pipeline_s, 2),
+        "pipeline_unit": "MVis/s",
         "device": torch.cuda.get_device_name(0),
     }
     print(json.dumps(line))

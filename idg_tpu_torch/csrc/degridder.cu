@@ -3,7 +3,9 @@
 //
 // Replaces idg_tpu/ops/pallas/degridder.py:_kernel_polstack_batch (launcher
 // _degridder_polstack_batch_run, registered as degridder pallas_v7),
-// non-fused 4-D input form. It computes the adjoint of the gridder:
+// non-fused 4-D input form, and with kFuse the fused grid-stage prologue
+// (the `fuse` branch, degridder.py:1022-1059, degridder_pallas_v7_staged
+// with fuse_oyx). It computes the adjoint of the gridder:
 //   pix'[y,x,p] = A1 · (sph·P) · A2ᴴ                      (prologue)
 //   vis[v,p] = Σ_{y,x} pix'[y,x,p] · conj(Φx[v,x] · Φy[v,y] · Σ_{r<w_rank} (iμ_v·n[y,x])^r / r!)
 // and writes [S, T, C, P] directly (the TPU kernel wrote c-major [S, P, C·T]
@@ -23,6 +25,17 @@
 // gridder. The TPU kernel's K-merged bf16 split products (kmerge, cfold),
 // pol stacking and software pipelining served its bf16 matrix unit and
 // in-order scheduler and have no counterpart here.
+//
+// Fused prologue (kFuse): the input is the range extraction's block-rolled
+// pieces. Per pol, the block reads its piece un-rolled by (oy, ox) = oyx[s]
+// (an exact index permutation, tile[y][x] = piece[(y+oy)%N][(x+ox)%N], in
+// place of the TPU kernel's conjugate Fourier phases), K3
+// (common.cuh:dft2_tile) applies the forward folded-shift DFT, and the
+// subgrid lands in shared memory, where the taper/Jones prologue reads it in
+// place of device memory. The result is exactly the non-fused kernel on
+// ops/grid.py:_finish_extract(pieces). The subgrid and K3's workspace use
+// the Φx region, which is free until the main loop, so shared memory and
+// occupancy stay those of the non-fused kernel.
 
 #include <cuda_runtime.h>
 
@@ -39,7 +52,7 @@ constexpr size_t smem_bytes() {
          + (size_t)N * N * sizeof(float);             // n
 }
 
-template <int N>
+template <int N, bool kFuse>
 __global__ void __launch_bounds__(kThreads) degridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float* __restrict__ mu,           // [S, T, C]
@@ -54,7 +67,9 @@ __global__ void __launch_bounds__(kThreads) degridder_kernel(
     const int* __restrict__ aterm_index,    // [S]
     const int* __restrict__ station1,       // [S]
     const int* __restrict__ station2,       // [S]
-    const float2* __restrict__ subgrids,    // [S, P, N, N]
+    const float2* __restrict__ subgrids,    // [S, P, N, N] subgrids, or pieces with kFuse
+    const int* __restrict__ oyx,            // [S, 2] (kFuse only)
+    const float2* __restrict__ wf,          // [N, N] forward DFT factors (kFuse only)
     float2* __restrict__ out,               // [S, T, C, P]
     int T, int C, int nr_stations, int w_rank) {
   using namespace idg;
@@ -66,17 +81,41 @@ __global__ void __launch_bounds__(kThreads) degridder_kernel(
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
   const size_t nn = (size_t)N * N;
+  const float2* sub_s = subgrids + (size_t)s * kPols * nn;
+
+  // fused prologue: pieces → subgrid [P][N·N] in the Φx region
+  float2* s_sub = s_phx;
+  if constexpr (kFuse) {
+    static_assert((kPols + 3) * N * N <= N * kThreads, "K3's workspace fits in s_phx");
+    float2* s_x = s_sub + kPols * N * N;
+    float2* s_tmp = s_x + N * N;
+    float2* s_wf = s_tmp + N * N;
+    for (int e = tid; e < N * N; e += kThreads) s_wf[e] = wf[e];
+    // the roll is taken mod N, as the plain version takes it: no index leaves the tile
+    const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
+#pragma unroll 1
+    for (int p = 0; p < kPols; ++p) {
+      for (int e = tid; e < N * N; e += kThreads) {
+        const int y = e / N, x = e % N;
+        s_x[e] = sub_s[p * nn + ((y + oy) % N) * N + (x + ox) % N];
+      }
+      __syncthreads();
+      float2* sub_p = s_sub + p * nn;
+      dft2_tile<N, kThreads>(s_x, s_tmp, s_wf,
+                             [&](int k1, int k2, float2 v) { sub_p[k1 * N + k2] = v; });
+    }
+    __syncthreads();
+  }
 
   // prologue: taper, then A1 · P · A2ᴴ (math.hpp:79-92)
   const size_t at1 = ((size_t)aterm_index[s] * nr_stations + station1[s]) * nn;
   const size_t at2 = ((size_t)aterm_index[s] * nr_stations + station2[s]) * nn;
-  const float2* sub_s = subgrids + (size_t)s * kPols * nn;
   for (int q = tid; q < N * N; q += kThreads) {
     const float taper = sph[q];
     float2 p[kPols];
 #pragma unroll
     for (int i = 0; i < kPols; ++i) {
-      const float2 v = sub_s[i * nn + q];
+      const float2 v = kFuse ? s_sub[i * nn + q] : sub_s[i * nn + q];
       p[i] = make_float2(v.x * taper, v.y * taper);
     }
     const float2* a = aterms + (at1 + q) * kPols;
@@ -143,22 +182,47 @@ __global__ void __launch_bounds__(kThreads) degridder_kernel(
   }
 }
 
-template <int N>
+template <int N, bool kFuse>
 cudaError_t launch(const float* uvw, const float* mu, const float* k, const float* po_x,
                    const float* po_y, const float* l, const float* m, const float* n,
                    const float* sph, const float2* aterms, const int* aterm_index,
                    const int* station1, const int* station2, const float2* subgrids,
-                   float2* out, int S, int T, int C, int nr_stations, int w_rank,
-                   cudaStream_t stream) {
+                   const int* oyx, const float2* wf, float2* out, int S, int T, int C,
+                   int nr_stations, int w_rank, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<N>();
   // above 48 KB a block's dynamic shared memory has to be opted into
   cudaError_t err = cudaFuncSetAttribute(
-      degridder_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      degridder_kernel<N, kFuse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  degridder_kernel<N><<<S, kThreads, bytes, stream>>>(
+  degridder_kernel<N, kFuse><<<S, kThreads, bytes, stream>>>(
       uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
-      subgrids, out, T, C, nr_stations, w_rank);
+      subgrids, oyx, wf, out, T, C, nr_stations, w_rank);
   return cudaGetLastError();
+}
+
+template <bool kFuse>
+int dispatch(const void* uvw, const void* mu, const void* k, const void* po_x,
+             const void* po_y, const void* l, const void* m, const void* n, const void* sph,
+             const void* aterms, const void* aterm_index, const void* station1,
+             const void* station2, const void* subgrids, const void* oyx, const void* wf,
+             void* out, int S, int T, int C, int N, int nr_stations, int w_rank,
+             void* stream) {
+  if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* st = static_cast<cudaStream_t>(stream);
+#define IDG_ARGS                                                                       \
+  (const float*)uvw, (const float*)mu, (const float*)k, (const float*)po_x,            \
+      (const float*)po_y, (const float*)l, (const float*)m, (const float*)n,           \
+      (const float*)sph, (const float2*)aterms, (const int*)aterm_index,               \
+      (const int*)station1, (const int*)station2, (const float2*)subgrids,             \
+      (const int*)oyx, (const float2*)wf, (float2*)out, S, T, C, nr_stations, w_rank, st
+  switch (N) {
+    case 16: return (int)launch<16, kFuse>(IDG_ARGS);
+    case 32: return (int)launch<32, kFuse>(IDG_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef IDG_ARGS
 }
 
 }  // namespace
@@ -169,20 +233,19 @@ extern "C" int idg_degridder_v7(
     const void* aterm_index, const void* station1, const void* station2,
     const void* subgrids, void* out, int S, int T, int C, int N, int nr_stations,
     int w_rank, void* stream) {
-  if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
-    return (int)cudaErrorInvalidValue;
-  }
-  auto* st = static_cast<cudaStream_t>(stream);
-#define IDG_ARGS                                                                       \
-  (const float*)uvw, (const float*)mu, (const float*)k, (const float*)po_x,            \
-      (const float*)po_y, (const float*)l, (const float*)m, (const float*)n,           \
-      (const float*)sph, (const float2*)aterms, (const int*)aterm_index,               \
-      (const int*)station1, (const int*)station2, (const float2*)subgrids,             \
-      (float2*)out, S, T, C, nr_stations, w_rank, st
-  switch (N) {
-    case 16: return (int)launch<16>(IDG_ARGS);
-    case 32: return (int)launch<32>(IDG_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef IDG_ARGS
+  return dispatch<false>(uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
+                         station1, station2, subgrids, nullptr, nullptr, out, S, T, C, N,
+                         nr_stations, w_rank, stream);
+}
+
+// The fused form: `pieces` are the range extraction's block-rolled pieces.
+extern "C" int idg_degridder_v7_fused(
+    const void* uvw, const void* mu, const void* k, const void* po_x, const void* po_y,
+    const void* l, const void* m, const void* n, const void* sph, const void* aterms,
+    const void* aterm_index, const void* station1, const void* station2,
+    const void* pieces, const void* oyx, const void* wf, void* out, int S, int T, int C,
+    int N, int nr_stations, int w_rank, void* stream) {
+  return dispatch<true>(uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
+                        station1, station2, pieces, oyx, wf, out, S, T, C, N, nr_stations,
+                        w_rank, stream);
 }

@@ -2,7 +2,9 @@
 //
 // Replaces idg_tpu/ops/pallas/gridder.py:_kernel_sep_recur_batch (launcher
 // _gridder_sep_recur_batch_run, registered as gridder pallas_v6), non-fused
-// form. It computes the same separable-phasor function:
+// form, and with kFuse the fused grid-stage epilogue (the `fuse` branch,
+// gridder.py:942-992, registered as gridder_pallas_v6_pieces). It computes
+// the same separable-phasor function:
 //   pixel[y,x,p] = Σ_v vis[v,p] · Φx[v,x] · Φy[v,y] · Σ_{r<w_rank} (iμ_v·n[y,x])^r / r!
 //   Φx[v,x] = e^{i(po_x[x] − l[x]·u_t·k_c)},  Φy[v,y] = e^{i(po_y[y] − m[y]·v_t·k_c)}
 // then the Jones correction A1ᴴ·P·A2 and the spheroidal taper.
@@ -23,6 +25,16 @@
 // makes no assumption on the channel spacing. The TPU kernel's bf16 hi/lo
 // split products, step batching and scratch double-buffering were answers
 // to the TPU's bf16-only matrix unit and VMEM and have no counterpart here.
+//
+// Fused epilogue (kFuse): after the Jones/taper epilogue each thread keeps
+// its pixels in registers; per pol, the tile goes to shared memory, K3
+// (common.cuh:dft2_tile) applies the inverse folded-shift DFT, and the store
+// rolls it by (oy, ox) = oyx[s] as an exact index permutation,
+// piece[(y+oy)%N][(x+ox)%N] = idft[y][x]. The TPU kernel put the roll on the
+// tile as Fourier phases for its layout's sake (grid.py:389-397); an index
+// on the store is exact and free here. The tile and K3's workspace reuse the
+// Φ tiles, idle after the main loop, so shared memory and occupancy stay
+// those of the non-fused kernel.
 
 #include <cuda_runtime.h>
 
@@ -33,7 +45,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 64;  // visibilities staged per pass: 2·64·N·8 B of Φ
 
-template <int N>
+template <int N, bool kFuse>
 __global__ void __launch_bounds__(kThreads) gridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float2* __restrict__ vis,         // [S, T, C, P]
@@ -49,11 +61,14 @@ __global__ void __launch_bounds__(kThreads) gridder_kernel(
     const int* __restrict__ aterm_index,    // [S]
     const int* __restrict__ station1,       // [S]
     const int* __restrict__ station2,       // [S]
-    float2* __restrict__ out,               // [S, P, N, N]
+    const int* __restrict__ oyx,            // [S, 2] (kFuse only)
+    const float2* __restrict__ wf,          // [N, N] inverse DFT factors (kFuse only)
+    float2* __restrict__ out,               // [S, P, N, N] subgrids, or pieces with kFuse
     int T, int C, int nr_stations, int w_rank) {
   using namespace idg;
   static_assert((N * N) % kThreads == 0, "pixels must split evenly");
   static_assert(kThreads % N == 0, "a thread's pixels share one column");
+  static_assert(kTile >= 2 * N, "the fused tile and K3's workspace fit in s_phx");
   constexpr int kPix = N * N / kThreads;
 
   __shared__ float2 s_phx[kTile][N];
@@ -144,22 +159,71 @@ __global__ void __launch_bounds__(kThreads) gridder_kernel(
     const float taper = sph[q];
 #pragma unroll
     for (int p = 0; p < kPols; ++p) {
-      out[((size_t)s * kPols + p) * nn + q] = make_float2(o[p].x * taper, o[p].y * taper);
+      if constexpr (kFuse) {
+        acc[i][p] = make_float2(o[p].x * taper, o[p].y * taper);
+      } else {
+        out[((size_t)s * kPols + p) * nn + q] = make_float2(o[p].x * taper, o[p].y * taper);
+      }
+    }
+  }
+
+  if constexpr (kFuse) {
+    // the main loop ended on a barrier, so the Φ tiles are free
+    float2* s_x = &s_phx[0][0];    // [N·N] one pol of the tile
+    float2* s_tmp = s_x + N * N;   // [N·N] K3's row pass
+    float2* s_wf = &s_phy[0][0];   // [N·N] factors
+    for (int e = tid; e < N * N; e += kThreads) s_wf[e] = wf[e];
+    // the roll is taken mod N, as the plain version takes it: no index leaves the tile
+    const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
+#pragma unroll
+    for (int p = 0; p < kPols; ++p) {
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) s_x[tid + i * kThreads] = acc[i][p];
+      __syncthreads();
+      float2* out_p = out + ((size_t)s * kPols + p) * nn;
+      dft2_tile<N, kThreads>(s_x, s_tmp, s_wf, [&](int y, int x, float2 v) {
+        out_p[((y + oy) % N) * N + (x + ox) % N] = v;
+      });
     }
   }
 }
 
-template <int N>
+template <int N, bool kFuse>
 cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const float* k,
                    const float* po_x, const float* po_y, const float* l, const float* m,
                    const float* n, const float* sph, const float2* aterms,
                    const int* aterm_index, const int* station1, const int* station2,
-                   float2* out, int S, int T, int C, int nr_stations, int w_rank,
-                   cudaStream_t stream) {
-  gridder_kernel<N><<<S, kThreads, 0, stream>>>(
+                   const int* oyx, const float2* wf, float2* out, int S, int T, int C,
+                   int nr_stations, int w_rank, cudaStream_t stream) {
+  gridder_kernel<N, kFuse><<<S, kThreads, 0, stream>>>(
       uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1,
-      station2, out, T, C, nr_stations, w_rank);
+      station2, oyx, wf, out, T, C, nr_stations, w_rank);
   return cudaGetLastError();
+}
+
+template <bool kFuse>
+int dispatch(const void* uvw, const void* vis, const void* mu, const void* k,
+             const void* po_x, const void* po_y, const void* l, const void* m,
+             const void* n, const void* sph, const void* aterms, const void* aterm_index,
+             const void* station1, const void* station2, const void* oyx, const void* wf,
+             void* out, int S, int T, int C, int N, int nr_stations, int w_rank,
+             void* stream) {
+  if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* st = static_cast<cudaStream_t>(stream);
+#define IDG_ARGS                                                                       \
+  (const float*)uvw, (const float2*)vis, (const float*)mu, (const float*)k,            \
+      (const float*)po_x, (const float*)po_y, (const float*)l, (const float*)m,        \
+      (const float*)n, (const float*)sph, (const float2*)aterms,                       \
+      (const int*)aterm_index, (const int*)station1, (const int*)station2,             \
+      (const int*)oyx, (const float2*)wf, (float2*)out, S, T, C, nr_stations, w_rank, st
+  switch (N) {
+    case 16: return (int)launch<16, kFuse>(IDG_ARGS);
+    case 32: return (int)launch<32, kFuse>(IDG_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef IDG_ARGS
 }
 
 }  // namespace
@@ -170,20 +234,19 @@ extern "C" int idg_gridder_v6(
     const void* aterms, const void* aterm_index, const void* station1,
     const void* station2, void* out, int S, int T, int C, int N, int nr_stations,
     int w_rank, void* stream) {
-  if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
-    return (int)cudaErrorInvalidValue;
-  }
-  auto* st = static_cast<cudaStream_t>(stream);
-#define IDG_ARGS                                                                       \
-  (const float*)uvw, (const float2*)vis, (const float*)mu, (const float*)k,            \
-      (const float*)po_x, (const float*)po_y, (const float*)l, (const float*)m,        \
-      (const float*)n, (const float*)sph, (const float2*)aterms,                       \
-      (const int*)aterm_index, (const int*)station1, (const int*)station2,             \
-      (float2*)out, S, T, C, nr_stations, w_rank, st
-  switch (N) {
-    case 16: return (int)launch<16>(IDG_ARGS);
-    case 32: return (int)launch<32>(IDG_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef IDG_ARGS
+  return dispatch<false>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
+                         station1, station2, nullptr, nullptr, out, S, T, C, N,
+                         nr_stations, w_rank, stream);
+}
+
+// The fused form: `out` receives the block-rolled image-domain pieces.
+extern "C" int idg_gridder_v6_pieces(
+    const void* uvw, const void* vis, const void* mu, const void* k, const void* po_x,
+    const void* po_y, const void* l, const void* m, const void* n, const void* sph,
+    const void* aterms, const void* aterm_index, const void* station1,
+    const void* station2, const void* oyx, const void* wf, void* out, int S, int T,
+    int C, int N, int nr_stations, int w_rank, void* stream) {
+  return dispatch<true>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
+                        station1, station2, oyx, wf, out, S, T, C, N, nr_stations,
+                        w_rank, stream);
 }

@@ -1,8 +1,8 @@
 """Public kernel-run API: correctness guards, staging and the perf runner.
 
 The counterpart of the part of ``idg_tpu/ops/api.py`` the gridder and
-degridder main path uses. Tests, the CLI and the benchmark all go through
-here. Observations come in on the host (numpy fields); results leave as
+degridder main path and the gridded and degrid pipelines use. Tests, the
+CLI and the benchmark all go through here. Observations come in on the host (numpy fields); results leave as
 complex64 tensors on the device they ran on.
 """
 
@@ -25,9 +25,10 @@ from .registry import get_kernel
 W_TAYLOR_TOL = 3e-6
 
 __all__ = [
-    "MAX_W_RANK", "W_TAYLOR_TOL", "DeviceUnavailable", "max_mu_n",
-    "required_w_rank", "resolve_device", "run_degridder", "run_gridder",
-    "staged_runner",
+    "MAX_W_RANK", "W_TAYLOR_TOL", "DeviceUnavailable", "gridded_pipeline_parts",
+    "max_mu_n", "required_w_rank", "resolve_device", "run_degridder", "run_gridder",
+    "staged_degridder_consumer", "staged_degridder_pieces_chunk_consumers",
+    "staged_gridder_pieces_runner", "staged_runner",
 ]
 
 
@@ -168,3 +169,100 @@ def staged_runner(workload: str, version: str, params: IDGParams, obs: Observati
     stg = stage(params, obs, dev, with_vis=False)
     sub = torch.as_tensor(np.ascontiguousarray(subgrids, np.complex64), device=dev)
     return fn, (params, stg, sub, rank)
+
+
+# The gridder versions with a fused grid-stage epilogue
+# (gridder_cuda_v6_pieces), and the degridder versions with a fused prologue
+# (`fuse_oyx`).
+PIECES_GRIDDERS = ("cuda_v6",)
+FUSED_DEGRIDDERS = ("cuda_v7",)
+
+
+def gridded_pipeline_parts(params: IDGParams, obs_sorted: Observation,
+                           version: str = "cuda_v6", w_rank=None, plan=None,
+                           device="cuda"):
+    """The fused gridded-pipeline recipe, one source for the `pipeline` CLI
+    and the bench: the per-subgrid rolls from the block-sorted metadata,
+    the pieces runner (gridder with the fused iDFT epilogue) and the range
+    grid-add consumer (K4). `obs_sorted` must be block-sorted
+    (ops/grid.py:sort_observation_blocks).
+
+    Returns (pfn, pargs, gfn, resolved_version, plan): `gfn(pfn(*pargs))` is
+    one pass, visibilities to a c64[P, G, G] grid. pfn, pargs and gfn are
+    None when the resolved version has no fused form."""
+    from .cuda.grid import grid_add_cuda
+    from .grid import plan_grid_add_ranges, roll_offsets
+
+    g, n = params.grid_size, params.subgrid_size
+    md = obs_sorted.metadata
+    if plan is None:
+        plan = plan_grid_add_ranges(md.coord_x, md.coord_y, g, n)
+    oyx = roll_offsets(md.coord_x, md.coord_y, g, n)
+    pfn, pargs, version = staged_gridder_pieces_runner(
+        params, obs_sorted, version, oyx, w_rank=w_rank, device=device)
+    if pfn is None:
+        return None, None, None, version, plan
+    oyx_dev = pargs[2]
+
+    def gfn(pieces):
+        return grid_add_cuda(pieces, oyx_dev, plan, g)
+
+    return pfn, pargs, gfn, version, plan
+
+
+def staged_gridder_pieces_runner(params: IDGParams, obs: Observation, version: str,
+                                 oyx, w_rank=None, device="cuda"):
+    """staged_runner's gridder path with the grid stage's producer fused
+    into the kernel epilogue: `fn(*args)` emits the block-rolled pieces
+    c64[S, P, N, N] that the range grid-add reads. `oyx` is the host i32[S, 2]
+    per-subgrid roll (ops/grid.py:roll_offsets). Returns (fn, args,
+    resolved_version), or (None, None, version) when the resolved version
+    has no fused form."""
+    from .cuda.gridder import gridder_cuda_v6_pieces
+
+    dev = resolve_device(device)
+    version, w_rank = _resolve("gridder", version, params, obs, w_rank)
+    if version not in PIECES_GRIDDERS:
+        return None, None, version
+    oyx_dev = torch.as_tensor(np.asarray(oyx, np.int32), device=dev)
+    rank = _rank("gridder", version, w_rank)
+    return gridder_cuda_v6_pieces, (params, stage(params, obs, dev), oyx_dev, rank), version
+
+
+def staged_degridder_consumer(params: IDGParams, obs: Observation,
+                              version: str = "cuda_v7", w_rank=None, device="cuda"):
+    """For the pipeline: returns (fn, resolved_version), where fn(subgrids)
+    degrids c64[S, P, N, N] uv subgrids produced on the device (e.g. by
+    the grid extraction). The observation is staged once, vis-free."""
+    dev = resolve_device(device)
+    version, w_rank = _resolve("degridder", version, params, obs, w_rank)
+    kernel = get_kernel("degridder", version).fn
+    rank = _rank("degridder", version, w_rank)
+    stg = stage(params, obs, dev, with_vis=False)
+    return (lambda sub: kernel(params, stg, sub, rank)), version
+
+
+def staged_degridder_pieces_chunk_consumers(params: IDGParams, obs: Observation,
+                                            version: str = "cuda_v7", oyx=None,
+                                            w_rank=None, device="cuda"):
+    """The fused degrid recipe: returns (consumers, bounds, resolved_version)
+    where consumers[i](pieces) degrids the range extraction's block-rolled
+    pieces of subgrid rows bounds[i] = (lo, hi), running the forward DFT and
+    the roll back inside the degridder kernel (its fused prologue). `oyx` is
+    the host i32[S, 2] per-subgrid roll of the block-sorted metadata. There
+    is one consumer over (0, S): the JAX package's per-chunk split is a TPU
+    compile-size device. Returns (None, None, version) when the resolved
+    version has no fused prologue."""
+    dev = resolve_device(device)
+    version, w_rank = _resolve("degridder", version, params, obs, w_rank)
+    if version not in FUSED_DEGRIDDERS:
+        return None, None, version
+    kernel = get_kernel("degridder", version).fn
+    rank = _rank("degridder", version, w_rank)
+    stg = stage(params, obs, dev, with_vis=False)
+    oyx_dev = torch.as_tensor(np.asarray(oyx, np.int32), device=dev)
+
+    def consumer(pieces):
+        return kernel(params, stg, pieces, rank, fuse_oyx=oyx_dev)
+
+    return [consumer], [(0, stg.nr_subgrids)], version

@@ -1,9 +1,10 @@
 """Build the CUDA kernels of ``idg_tpu_torch/csrc`` and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library lands in ``idg_tpu_torch/_build/<hash>/``, keyed by a
-hash of the sources and flags, and is built at first use. Every entry point
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds).
+The library lands in ``idg_tpu_torch/_build/<hash>/``, keyed by a hash of
+the sources and flags, and is built at first use. Every entry point
 launches on the stream it is given and returns ``cudaGetLastError()``.
 
     CUDA_HOME   toolkit root holding bin/nvcc (default /usr/local/cuda)
@@ -27,7 +28,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "_build"
 # phase arguments reach ~35 rad.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -35,7 +36,11 @@ _I = ctypes.c_int
 # pointer args, int args, then the stream, per entry point
 SIGNATURES = {
     "idg_gridder_v6": [_P] * 15 + [_I] * 6 + [_P],
+    "idg_gridder_v6_pieces": [_P] * 17 + [_I] * 6 + [_P],
     "idg_degridder_v7": [_P] * 15 + [_I] * 6 + [_P],
+    "idg_degridder_v7_fused": [_P] * 17 + [_I] * 6 + [_P],
+    "idg_grid_add": [_P] * 5 + [_I] * 5 + [_P],
+    "idg_grid_extract": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _library = None
@@ -72,19 +77,31 @@ def build() -> pathlib.Path:
         build_log = log.read_text() if log.exists() else ""
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename, so a concurrent process
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    (out_dir / "build.log").write_text(build_log)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    # build in a private directory and rename the library into place, so a
+    # concurrent process never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(work, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [proc.returncode for proc in procs if proc.returncode != 0]
+        if not failed:
+            tmp = os.path.join(work, lib.name)
+            link = subprocess.run(
+                [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", tmp, *objs],
+                capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+            failed = [link.returncode] if link.returncode != 0 else []
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
+        (out_dir / "build.log").write_text(build_log)
+        os.replace(tmp, lib)
     return lib
 
 

@@ -1,8 +1,9 @@
 """Degridder `cuda_v7`: the hand-written CUDA kernel (csrc/degridder.cu)
-and its plain PyTorch version.
+and its plain PyTorch version, on uv subgrids or, with `fuse_oyx`, on the
+range extraction's block-rolled pieces (the fused grid-stage prologue).
 
 `degridder_cuda_v7` dispatches on the device of the staging it is given: a
-CPU staging runs `degridder_plain`, a CUDA staging launches the kernel (or
+CPU staging runs the plain version, a CUDA staging launches the kernel (or
 raises). There is no fallback between the two.
 """
 
@@ -12,6 +13,7 @@ import torch
 
 from ...config import IDGParams
 from ..common import Staged, n_powers
+from ..grid import _finish_extract, dft_shift_factors_on
 from ..registry import register
 from . import build
 from .gridder import (
@@ -72,17 +74,29 @@ def degridder_plain(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
     family="cuda", uniform_channels=False,
 )
 def degridder_cuda_v7(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
-                      w_rank: int = DEFAULT_W_RANK):
+                      w_rank: int = DEFAULT_W_RANK, fuse_oyx: torch.Tensor | None = None):
     """Degridder on a staging and c64[S, P, N, N] subgrids on the same
     device: the plain version on the CPU, the CUDA kernel on a card.
-    Returns c64[S, T, C, P]. `degridder_cuda_v7.launches` counts kernel
-    launches."""
+    Returns c64[S, T, C, P].
+
+    With `fuse_oyx` (i32[S, 2] per-subgrid rolls, ops/grid.py:roll_offsets),
+    `subgrids` are the range extraction's block-rolled pieces and the kernel
+    runs the fused forward-DFT prologue: the result is that of the
+    non-fused kernel on ops/grid.py:_finish_extract(pieces, fuse_oyx).
+
+    `degridder_cuda_v7.launches` counts kernel launches, and
+    `degridder_cuda_v7.fused_launches` those of the fused form."""
     _check_staged(params, stg, w_rank)
     device = stg.device
     S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
     N, P = params.subgrid_size, params.nr_correlations
     _check_tensor("subgrids", subgrids, torch.complex64, (S, P, N, N), device)
+    fused = fuse_oyx is not None
+    if fused:
+        _check_tensor("fuse_oyx", fuse_oyx, torch.int32, (S, 2), device)
     if device.type == "cpu":
+        if fused:
+            subgrids = _finish_extract(subgrids, fuse_oyx)
         return degridder_plain(params, stg, subgrids, w_rank)
     if device.type != "cuda":
         raise ValueError(f"degridder_cuda_v7 runs on cpu or cuda, not {device}")
@@ -91,18 +105,24 @@ def degridder_cuda_v7(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
     if S == 0:
         return out
     lib = build.library()
+    common = (ptr(stg.uvw), ptr(stg.mu), ptr(stg.wavenumbers), ptr(stg.po_x),
+              ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n), ptr(stg.sph),
+              ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
+              ptr(stg.station2), ptr(subgrids))
+    sizes = (S, T, C, N, stg.aterms.shape[1], w_rank)
     with torch.cuda.device(device):
-        rc = lib.idg_degridder_v7(
-            ptr(stg.uvw), ptr(stg.mu), ptr(stg.wavenumbers), ptr(stg.po_x),
-            ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n), ptr(stg.sph),
-            ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
-            ptr(stg.station2), ptr(subgrids), ptr(out),
-            S, T, C, N, stg.aterms.shape[1], w_rank,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if fused:
+            wf = dft_shift_factors_on(N, False, device)
+            rc = lib.idg_degridder_v7_fused(*common, ptr(fuse_oyx), ptr(wf), ptr(out),
+                                            *sizes, stream)
+        else:
+            rc = lib.idg_degridder_v7(*common, ptr(out), *sizes, stream)
     build.check(rc, "degridder_cuda_v7")
     degridder_cuda_v7.launches += 1
+    degridder_cuda_v7.fused_launches += fused
     return out
 
 
 degridder_cuda_v7.launches = 0
+degridder_cuda_v7.fused_launches = 0

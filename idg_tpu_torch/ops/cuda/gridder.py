@@ -1,8 +1,10 @@
 """Gridder `cuda_v6`: the hand-written CUDA kernel (csrc/gridder.cu) and
-its plain PyTorch version.
+its plain PyTorch version, in two forms: uv subgrids (`gridder_cuda_v6`)
+and, with the fused grid-stage epilogue, block-rolled image-domain pieces
+(`gridder_cuda_v6_pieces`).
 
-`gridder_cuda_v6` dispatches on the device of the staging it is given: a
-CPU staging runs `gridder_plain`, a CUDA staging launches the kernel (or
+Each wrapper dispatches on the device of the staging it is given: a CPU
+staging runs the plain version, a CUDA staging launches the kernel (or
 raises). There is no fallback between the two.
 """
 
@@ -12,6 +14,7 @@ import torch
 
 from ...config import IDGParams
 from ..common import MAX_W_RANK, Staged, n_powers
+from ..grid import dft_shift_factors_on, pieces_from_subgrids
 from ..registry import register
 from . import build
 
@@ -175,3 +178,52 @@ def gridder_cuda_v6(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK
 
 
 gridder_cuda_v6.launches = 0
+
+
+def gridder_v6_pieces_plain(params: IDGParams, stg: Staged, oyx: torch.Tensor,
+                            w_rank: int = DEFAULT_W_RANK):
+    """The fused kernel's function in torch ops: `gridder_plain`, then the
+    roll as Fourier phases and the folded-shift inverse DFT as matmuls
+    (ops/grid.py:pieces_from_subgrids). Returns c64[S, P, N, N]."""
+    return pieces_from_subgrids(gridder_plain(params, stg, w_rank), oyx)
+
+
+def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
+                           w_rank: int = DEFAULT_W_RANK):
+    """`gridder_cuda_v6` with the grid stage's producer fused into the
+    epilogue (the counterpart of gridder_pallas_v6_pieces): returns the
+    block-rolled image-domain pieces c64[S, P, N, N] that
+    ops/grid.py:subgrids_to_grid_ranges(tiles=...) adds into the grid.
+    `oyx` is the i32[S, 2] per-subgrid roll (ops/grid.py:roll_offsets) on
+    the staging's device. `gridder_cuda_v6_pieces.launches` counts kernel
+    launches."""
+    _check_staged(params, stg, w_rank)
+    device = stg.device
+    S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
+    N, P = params.subgrid_size, params.nr_correlations
+    _check_tensor("oyx", oyx, torch.int32, (S, 2), device)
+    if device.type == "cpu":
+        return gridder_v6_pieces_plain(params, stg, oyx, w_rank)
+    if device.type != "cuda":
+        raise ValueError(f"gridder_cuda_v6_pieces runs on cpu or cuda, not {device}")
+    check_staging(params, stg, with_vis=True)
+    out = torch.empty((S, P, N, N), dtype=torch.complex64, device=device)
+    if S == 0:
+        return out
+    wf = dft_shift_factors_on(N, True, device)
+    lib = build.library()
+    with torch.cuda.device(device):
+        rc = lib.idg_gridder_v6_pieces(
+            ptr(stg.uvw), ptr(stg.vis), ptr(stg.mu), ptr(stg.wavenumbers),
+            ptr(stg.po_x), ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n),
+            ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
+            ptr(stg.station2), ptr(oyx), ptr(wf), ptr(out),
+            S, T, C, N, stg.aterms.shape[1], w_rank,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(rc, "gridder_cuda_v6_pieces")
+    gridder_cuda_v6_pieces.launches += 1
+    return out
+
+
+gridder_cuda_v6_pieces.launches = 0

@@ -13,6 +13,7 @@ subgrid axis, as in the reference's correctness harness):
   spheroidal     f32[N, N]
   aterms         c64[nr_timeslots, nr_stations, N, N, P]   (P = xx,xy,yx,yy)
   subgrids       c64[S, P, N, N]
+  grid           c64[P, G, G]
   metadata       SoA int32 arrays of length S
 """
 
@@ -100,3 +101,17 @@ def to_device(obs: Observation, device) -> Observation:
             }
         ),
     )
+
+
+def grid_from_pair(pair, device=None) -> torch.Tensor:
+    """The port's c64[P, G, G] grid from the JAX package's split grid pair
+    (re, im) of f32[P, G, G] arrays (any array-likes)."""
+    re, im = (np.asarray(v, np.float32) for v in pair)
+    return torch.complex(torch.as_tensor(re), torch.as_tensor(im)).to(device)
+
+
+def grid_to_pair(grid: torch.Tensor):
+    """The JAX package's split grid pair (re, im), f32[P, G, G] numpy arrays,
+    from the port's c64[P, G, G] grid on any device."""
+    g = grid.detach().cpu()
+    return g.real.numpy().astype(np.float32), g.imag.numpy().astype(np.float32)

@@ -46,10 +46,30 @@ def test_cuda_device_without_card_fails_clearly():
 
 def test_port_imports_no_jax():
     code = ("import sys, idg_tpu_torch, idg_tpu_torch.cli, idg_tpu_torch.bench, "
-            "idg_tpu_torch.ops.api, idg_tpu_torch.ops.registry; "
+            "idg_tpu_torch.ops.api, idg_tpu_torch.ops.registry, idg_tpu_torch.ops.grid, "
+            "idg_tpu_torch.ops.cuda; "
             "idg_tpu_torch.ops.registry.list_kernels(); "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'idg_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = _run(code=code)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("direction", ["grid", "degrid"])
+def test_pipeline_without_card_fails_clearly(direction):
+    """The pipeline times the card: without one it exits 2 before any work."""
+    probe = _run(code="import torch; print(torch.cuda.is_available())")
+    if probe.stdout.strip() != "False":
+        pytest.skip("a CUDA device is visible here")
+    out = _run("pipeline", "--direction", direction, "--device", "cuda")
+    assert out.returncode == 2
+    assert "no CUDA device is visible" in out.stderr
+    assert "stage split" not in out.stdout
+
+
+def test_pipeline_rejects_the_cpu():
+    out = _run("pipeline", "--direction", "grid", "--device", "cpu")
+    assert out.returncode != 0
+    assert "needs --device cuda" in out.stderr
+    assert "stage split" not in out.stdout
