@@ -30,6 +30,17 @@ non-zero:
               every kernel of its path must have launched; then each against
               its --no-fuse composition (1e-5 gate on the outputs over
               max |ref|)
+  8. grid-add the piece grid-add K6 (LOFAR-4096 masked pieces), the merged
+              grid-add K7 (16384², m = 64, one stripe with wrap misses), the
+              piece scatter K11a (default problem) and the slot gather K11b
+              (LOFAR-4096) each against its plain version on the card (1e-5
+              gate), then each timed both ways at its full problem, and K4
+              timed on the LOFAR-4096 pieces beside the mask + K6 pass; then
+              every path of the `grid` command that reaches a grid-add kernel
+              (default, --no-fft, --method pallas, LOFAR-4096 with and without
+              --method pallas, 16384² to-grid and to-subgrids) with counted
+              launches; then phase 7 at LOFAR-4096 (GRID_SIZE=4096
+              NR_STATIONS=27), whose grid pipeline must take K6 and not K4
 Then a JSON line of per-kernel results, the `nvidia-smi` line, and last the
 result line {"ok": true, "device": {...}}. Perf CSVs go to $OUTPUT_PATH, by
 default a fresh temporary directory.
@@ -49,6 +60,17 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 GATE = 1e-5
 COMPARE_SUBGRIDS = 512
+LOFAR_4096 = dict(grid_size=4096, nr_stations=27)    # north-star config 3
+GRID_16384 = dict(grid_size=16384)                    # config 5's grid on one card
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by the kernel names of the JSON line."""
+    from idg_tpu_torch.ops import cuda as k
+
+    counts = {w.__name__: w.launches for w in k.KERNELS}
+    counts["degridder_cuda_v7_fused"] = k.degridder_cuda_v7.fused_launches
+    return counts
 
 
 def phase(name: str, msg: str) -> None:
@@ -61,7 +83,7 @@ def device_ms(fn, *args, harness) -> float:
     return time_kernel(fn, *args, harness=harness).seconds * 1e3
 
 
-def compare(name: str, got, want, exact: bool = False) -> float:
+def compare(name: str, got, want, exact: bool = False, tag: str = "grid") -> float:
     """Gate `got` (kernel, on the card) against `want` (plain version);
     returns the max abs error. Raises on a miss or a non-finite value."""
     import torch
@@ -82,7 +104,7 @@ def compare(name: str, got, want, exact: bool = False) -> float:
         ok = res.passed
         msg = (f"mean_error {res.mean_error:.3e} (gate {GATE:g}), max_abs_err "
                f"{max_abs:.3e}, max |reference| {scale:.3e}")
-    phase("grid", f"{name}: {msg} {'PASSED' if ok else 'FAILED'}")
+    phase(tag, f"{name}: {msg} {'PASSED' if ok else 'FAILED'}")
     if not ok:
         raise RuntimeError(f"{name} disagrees with its reference")
     return max_abs
@@ -197,27 +219,30 @@ def grid_stage_phase(rows, timing, plain_timing):
     torch.cuda.empty_cache()
 
 
-def pipeline_phase(rows, mvis):
-    """Phase 7: the `pipeline` command at the full default problem, each
-    direction with counted launches, then against its --no-fuse form."""
+def pipeline_phase(rows, params=None, grid_add: str = "grid_add_cuda"):
+    """Phase 7 (and its LOFAR-4096 run in phase 8): the `pipeline` command,
+    each direction with counted launches, then against its --no-fuse form.
+    `grid_add` is the grid-add kernel the grid direction must take; the
+    other range grid-adds must not launch."""
     import torch
 
     from idg_tpu_torch import cli
-    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.config import IDGParams
     from idg_tpu_torch.utils.compare import check_error
+    from idg_tpu_torch.utils.costs import workload_costs
 
-    counted = {
-        "grid": (("gridder_cuda_v6_pieces", lambda: kernels.gridder_cuda_v6_pieces.launches),
-                 ("grid_add_cuda", lambda: kernels.grid_add_cuda.launches)),
-        "degrid": (("grid_extract_cuda", lambda: kernels.grid_extract_cuda.launches),
-                   ("degridder_cuda_v7_fused",
-                    lambda: kernels.degridder_cuda_v7.fused_launches)),
-    }
+    _, _, mvis = workload_costs(params or IDGParams.from_env())
+    path = {"grid": ("gridder_cuda_v6_pieces", grid_add),
+            "degrid": ("grid_extract_cuda", "degridder_cuda_v7_fused")}
+    absent = {"grid": {"grid_add_cuda", "grid_add_pieces_cuda"} - {grid_add}, "degrid": set()}
     by_name = {row["name"]: row for row in rows}
-    for direction, path in counted.items():
+    for direction, names in path.items():
+        from idg_tpu_torch.ops import cuda as kernels
+
         kernels.reset_launch_counts()
-        res = cli._pipeline_one(direction)
-        launches = {name: count() for name, count in path}
+        res = cli._pipeline_one(direction, params=params)
+        counts = launch_counts()
+        launches = {name: counts[name] for name in names}
         phase("pipeline", f"{res.name}: {res.seconds * 1e3:.3f} ms/pass, "
                           f"{mvis / res.seconds:.2f} MVis/s; kernel "
                           f"{res.kernel_seconds * 1e3:.3f} ms, grid stage "
@@ -226,7 +251,11 @@ def pipeline_phase(rows, mvis):
             by_name[name]["launches"] += n
             if n == 0:
                 raise RuntimeError(f"{name} was never launched on the {direction} pipeline")
-        ref = cli._pipeline_one(direction, no_fuse=True, suffix="_nofuse")
+        for name in absent[direction]:
+            if counts[name]:
+                raise RuntimeError(f"{name} launched on the {direction} pipeline, which "
+                                   f"takes {grid_add}")
+        ref = cli._pipeline_one(direction, no_fuse=True, suffix="_nofuse", params=params)
         # gated on both outputs over max|ref|, which makes check_error's metric
         # a normalized RMS: the CLI's degrid grid is normal(0, 1), so the
         # visibilities reach ~1e3, where the raw metric (printed too) grows
@@ -242,6 +271,149 @@ def pipeline_phase(rows, mvis):
             raise RuntimeError(f"{res.name} disagrees with its --no-fuse composition")
         del res, ref
         torch.cuda.empty_cache()
+
+
+def grid_add_phase(rows, timing, plain_timing):
+    """Phase 8: K6, K7, K11a and K11b against their plain versions at the
+    shapes the `grid` command and the LOFAR-4096 pipeline give them, timed
+    both ways; then the command's grid-add paths with counted launches, and
+    the LOFAR-4096 pipelines."""
+    import torch
+
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.config import IDGParams
+    from idg_tpu_torch.data import make_perf_observation
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops import grid as tgrid
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def problem(**over):
+        """Block-sorted coords of the perf problem, random image-domain tiles
+        on the card (random, so that a misrouted piece cannot hide), and the
+        tiles' quadrant and masked pieces."""
+        params = IDGParams.from_env(**over)
+        g, n = params.grid_size, params.subgrid_size
+        md = make_perf_observation(params).metadata
+        _, cx, cy = tgrid.sorted_block_coords(md.coord_x, md.coord_y, g, n)
+        tiles = torch.randn((params.nr_subgrids, params.nr_correlations, n, n),
+                            dtype=torch.complex64, device="cuda", generator=gen)
+        oyx = torch.as_tensor(tgrid.roll_offsets(cx, cy, g, n), device="cuda")
+        return params, cx, cy, tiles, oyx
+
+    def case(name, kernel, plain, args, source, replaces, detail=""):
+        max_abs = compare(f"{name} vs plain{detail}", kernel(*args), plain(*args), tag="grid-add")
+        k_ms = device_ms(kernel, *args, harness=timing)
+        p_ms = device_ms(plain, *args, harness=plain_timing)
+        phase("grid-add", f"{name}{detail}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                         launches=0, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms))
+
+    # K11a on the default problem's quadrant pieces (the --method pallas path)
+    params, cx, cy, tiles, oyx = problem()
+    g, n = params.grid_size, params.subgrid_size
+    splan = tgrid.plan_grid_add(cx, cy, g, n)
+    quad = tgrid._quadrant_pieces(tiles, cy, cx, g)
+    case("grid_add_scatter_cuda", kernels.grid_add_scatter_cuda, kernels.grid_add_scatter_plain,
+         (quad, splan), "idg_tpu_torch/csrc/grid_add_slots.cu", "idg_tpu/ops/grid.py:1819",
+         f" ({g}², {quad.shape[0]} pieces, atomics)")
+    del quad, tiles
+    torch.cuda.empty_cache()
+
+    # K6 and K11b on LOFAR-4096; K4 on the same pieces beside mask + K6
+    params, cx, cy, tiles, oyx = problem(**LOFAR_4096)
+    g, n = params.grid_size, params.subgrid_size
+    plan = tgrid.plan_grid_add_ranges(cx, cy, g, n)
+    occupied = int((plan.lens[:, :plan.nb].sum(axis=0) > 0).sum())
+    phase("grid-add", f"LOFAR-4096: S = {params.nr_subgrids}, {plan.nb} blocks, {occupied} "
+                      f"occupied, route {tgrid.ranges_route(plan)}")
+    masked = tgrid._mask_pieces(tiles, oyx[:, 0], oyx[:, 1])
+    case("grid_add_pieces_cuda", kernels.grid_add_pieces_cuda, kernels.grid_add_pieces_plain,
+         (masked, plan), "idg_tpu_torch/csrc/grid_add_pieces.cu", "idg_tpu/ops/grid.py:616",
+         f" (LOFAR-4096 masked pieces, {masked.shape[0]})")
+    del masked
+    cxd, cyd = (torch.as_tensor(np.asarray(c, np.int32), device="cuda") for c in (cx, cy))
+    k4_ms = device_ms(kernels.grid_add_cuda, tiles, oyx, plan, g, harness=timing)
+    k6_ms = device_ms(lambda t: tgrid.subgrids_to_grid_ranges(None, cxd, cyd, g, plan=plan,
+                                                              tiles=t), tiles, harness=timing)
+    phase("grid-add", f"LOFAR-4096 grid stage on the same pieces: K4 {k4_ms:.3f} ms, "
+                      f"mask + K6 (the JAX dispatch, taken) {k6_ms:.3f} ms")
+    splan = tgrid.plan_grid_add(cx, cy, g, n)
+    quad = tgrid._quadrant_pieces(tiles, cy, cx, g)
+    case("grid_add_slots_cuda", kernels.grid_add_slots_cuda, kernels.grid_add_slots_plain,
+         (quad, splan), "idg_tpu_torch/csrc/grid_add_slots.cu", "idg_tpu/ops/grid.py:2028",
+         f" (LOFAR-4096, cap {splan.cap})")
+    del quad, tiles
+    torch.cuda.empty_cache()
+
+    # K7 on 16384²: one stripe with wrap misses compared, every stripe timed
+    params, cx, cy, tiles, oyx = problem(**GRID_16384)
+    g, n = params.grid_size, params.subgrid_size
+    plan = tgrid.plan_grid_add_ranges(cx, cy, g, n)
+    mplan = tgrid.merged_plan_for(plan)
+    if mplan is None or mplan.m != 64:
+        raise RuntimeError("16384²: the merged plan should take m = 64")
+    masked = tgrid._mask_pieces(tiles, oyx[:, 0], oyx[:, 1])
+    del tiles
+    stripe = (tgrid.MAX_RANGE_BLOCKS // plan.nbx) * plan.nbx
+    lo = int(mplan.miss_blocks[0]) // stripe * stripe
+    phase("grid-add", f"16384²: m = {mplan.m}, wm = {mplan.wm}, {len(mplan.miss_rows)} wrap "
+                      f"misses, {int((mplan.gocc > 0).sum())} of {mplan.gocc.size} groups "
+                      f"occupied, {plan.nb // stripe} stripes of {stripe} blocks")
+    max_abs = compare(f"grid_add_merged_cuda vs plain (16384² stripe [{lo}, {lo + stripe}))",
+                      kernels.grid_add_merged_cuda(masked, plan, mplan, lo, lo + stripe),
+                      kernels.grid_add_merged_plain(masked, plan, mplan, lo, lo + stripe),
+                      tag="grid-add")
+
+    def all_stripes(fn):
+        def run(pieces):
+            for s0 in range(0, plan.nb, stripe):
+                fn(pieces, plan, mplan, s0, s0 + stripe)
+        return run
+
+    k_ms = device_ms(all_stripes(kernels.grid_add_merged_cuda), masked, harness=timing)
+    p_ms = device_ms(all_stripes(kernels.grid_add_merged_plain), masked, harness=plain_timing)
+    phase("grid-add", f"grid_add_merged_cuda, all {plan.nb // stripe} stripes: kernel "
+                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (zero-filled bands included)")
+    rows.append(dict(name="grid_add_merged_cuda", route="cuda",
+                     source="idg_tpu_torch/csrc/grid_add_merged.cu",
+                     replaces="idg_tpu/ops/grid.py:788", launches=0, max_abs_err=max_abs,
+                     ms=k_ms, plain_ms=p_ms))
+    del masked
+    torch.cuda.empty_cache()
+
+    # the `grid` command's paths through the new kernels, counted launches
+    by_name = {row["name"]: row for row in rows}
+    paths = (
+        ("grid", {}, {}, "grid_add_cuda"),
+        ("grid --no-fft --method ranges", {}, dict(no_fft=True, method="ranges"),
+         "grid_add_pieces_cuda"),
+        ("grid --method pallas", {}, dict(method="pallas"), "grid_add_scatter_cuda"),
+        ("LOFAR-4096 grid --method pallas", LOFAR_4096, dict(method="pallas"),
+         "grid_add_slots_cuda"),
+        ("LOFAR-4096 grid", LOFAR_4096, {}, "grid_add_pieces_cuda"),
+        ("16384² grid", GRID_16384, {}, "grid_add_merged_cuda"),
+        ("16384² grid --direction to-subgrids", GRID_16384, dict(direction="to-subgrids"),
+         "grid_extract_cuda"),
+    )
+    for label, over, kwargs, name in paths:
+        kernels.reset_launch_counts()
+        res = cli._grid_one(params=IDGParams.from_env(**over), **kwargs)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        outputs = res.output if isinstance(res.output, (list, tuple)) else [res.output]
+        finite = all(bool(torch.isfinite(torch.view_as_real(o)).all()) for o in outputs)
+        phase("grid-add", f"{label}: {res.name} {res.seconds * 1e3:.3f} ms ({res.method}); "
+                          f"launches {launches}; output finite {finite}")
+        if not launches.get(name):
+            raise RuntimeError(f"{name} was never launched on `{label}`")
+        if not finite:
+            raise RuntimeError(f"`{label}` gave a non-finite output")
+        by_name[name]["launches"] += launches.get(name, 0)
+        del res, outputs
+        torch.cuda.empty_cache()
+
+    # both LOFAR-4096 pipelines against their --no-fuse compositions
+    pipeline_phase(rows, IDGParams.from_env(**LOFAR_4096), grid_add="grid_add_pieces_cuda")
 
 
 def main() -> int:
@@ -384,7 +556,10 @@ def main() -> int:
     grid_stage_phase(rows, timing, plain_timing)
 
     # 7. the pipelines through the CLI, counted launches
-    pipeline_phase(rows, mvis)
+    pipeline_phase(rows)
+
+    # 8. the grid-add kernels, the `grid` command and LOFAR-4096
+    grid_add_phase(rows, timing, plain_timing)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -184,14 +184,15 @@ def gridded_pipeline_parts(params: IDGParams, obs_sorted: Observation,
     """The fused gridded-pipeline recipe, one source for the `pipeline` CLI
     and the bench: the per-subgrid rolls from the block-sorted metadata,
     the pieces runner (gridder with the fused iDFT epilogue) and the range
-    grid-add consumer (K4). `obs_sorted` must be block-sorted
+    grid-add consumer, `subgrids_to_grid_ranges` on the pieces: K4 on the
+    tile path, the masked pieces and K6 on sparse plans
+    (ops/grid.py:ranges_route). `obs_sorted` must be block-sorted
     (ops/grid.py:sort_observation_blocks).
 
     Returns (pfn, pargs, gfn, resolved_version, plan): `gfn(pfn(*pargs))` is
     one pass, visibilities to a c64[P, G, G] grid. pfn, pargs and gfn are
     None when the resolved version has no fused form."""
-    from .cuda.grid import grid_add_cuda
-    from .grid import plan_grid_add_ranges, roll_offsets
+    from .grid import plan_grid_add_ranges, roll_offsets, subgrids_to_grid_ranges
 
     g, n = params.grid_size, params.subgrid_size
     md = obs_sorted.metadata
@@ -202,10 +203,12 @@ def gridded_pipeline_parts(params: IDGParams, obs_sorted: Observation,
         params, obs_sorted, version, oyx, w_rank=w_rank, device=device)
     if pfn is None:
         return None, None, None, version, plan
-    oyx_dev = pargs[2]
+    dev = pargs[2].device
+    cx, cy = (torch.as_tensor(np.asarray(c, np.int32), device=dev)
+              for c in (md.coord_x, md.coord_y))
 
     def gfn(pieces):
-        return grid_add_cuda(pieces, oyx_dev, plan, g)
+        return subgrids_to_grid_ranges(None, cx, cy, g, plan=plan, tiles=pieces)
 
     return pfn, pargs, gfn, version, plan
 

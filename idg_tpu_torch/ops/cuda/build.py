@@ -41,6 +41,10 @@ SIGNATURES = {
     "idg_degridder_v7_fused": [_P] * 17 + [_I] * 6 + [_P],
     "idg_grid_add": [_P] * 5 + [_I] * 5 + [_P],
     "idg_grid_extract": [_P] * 4 + [_I] * 3 + [_P],
+    "idg_grid_add_pieces": [_P] * 5 + [_I] * 5 + [_P],
+    "idg_grid_add_merged": [_P] * 6 + [_I] * 7 + [_P],
+    "idg_grid_add_scatter": [_P] * 3 + [_I] * 4 + [_P],
+    "idg_grid_add_slots": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _library = None

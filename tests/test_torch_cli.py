@@ -73,3 +73,24 @@ def test_pipeline_rejects_the_cpu():
     assert out.returncode != 0
     assert "needs --device cuda" in out.stderr
     assert "stage split" not in out.stdout
+
+
+@pytest.mark.parametrize("direction", ["to-grid", "to-subgrids"])
+def test_grid_without_card_fails_clearly(direction):
+    """The grid command times the card: without one it exits 2 before any work."""
+    probe = _run(code="import torch; print(torch.cuda.is_available())")
+    if probe.stdout.strip() != "False":
+        pytest.skip("a CUDA device is visible here")
+    out = _run("grid", "--direction", direction, "--method", "pallas", "--device", "cuda")
+    assert out.returncode == 2
+    assert "no CUDA device is visible" in out.stderr
+    assert "grid-add plan" not in out.stdout
+
+
+def test_grid_rejects_the_cpu_and_unknown_methods():
+    out = _run("grid", "--device", "cpu")
+    assert out.returncode != 0
+    assert "needs --device cuda" in out.stderr
+    out = _run("grid", "--method", "rows")
+    assert out.returncode == 2
+    assert "invalid choice" in out.stderr

@@ -162,3 +162,71 @@ def test_grid_stage_launch_counters(card):
     assert kernels.grid_extract_cuda.launches == 1
     assert kernels.degridder_cuda_v7.launches == 2
     assert kernels.degridder_cuda_v7.fused_launches == 1
+
+
+def _piece_problem(n, g, s):
+    """Block-sorted coordinates with ten subgrids on the last block column
+    (so that merged groups have wrap misses) and c64 uv subgrids."""
+    rng = np.random.default_rng(11)
+    cx = np.concatenate([np.full(10, g - n + 5), rng.integers(0, g, s - 10)])
+    cy = rng.integers(0, g, s)
+    order = tgrid.block_sort_order(cx, cy, g, n)
+    cx, cy = cx[order].astype(np.int32), cy[order].astype(np.int32)
+    sub = (rng.normal(size=(s, 4, n, n)) + 1j * rng.normal(size=(s, 4, n, n))).astype(np.complex64)
+    return cx, cy, torch.from_numpy(sub)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,g,s", [(16, 512, 70), (32, 1024, 200)])
+def test_grid_add_piece_and_slot_kernels_match_plain(card, n, g, s):
+    """K6, K7 (before the patch), K11a and K11b against their plain versions
+    (K11a's atomics sum in a run-dependent order), and the streamed path
+    against the plain periodic scatter."""
+    cx, cy, sub = _piece_problem(n, g, s)
+    plan = tgrid.plan_grid_add_ranges(cx, cy, g, n)
+    mplan = tgrid.plan_grid_add_merged(plan, 16)
+    splan = tgrid.plan_grid_add(cx, cy, g, n)
+    oyx = torch.from_numpy(tgrid.roll_offsets(cx, cy, g, n))
+    masked = tgrid._mask_pieces(tgrid.pieces_from_subgrids(sub, oyx), oyx[:, 0], oyx[:, 1])
+    quad = tgrid._quadrant_pieces(sub, cy, cx, g)
+    masked_gpu, quad_gpu = masked.to(card), quad.to(card)
+
+    got = kernels.grid_add_pieces_cuda(masked_gpu, plan)
+    torch.cuda.synchronize()
+    _gate(got, kernels.grid_add_pieces_plain(masked, plan))
+    lo, hi = 8 * plan.nbx, 16 * plan.nbx
+    _gate(kernels.grid_add_pieces_cuda(masked_gpu, plan, lo, hi),
+          kernels.grid_add_pieces_plain(masked, plan, lo, hi))
+    assert mplan is not None and len(mplan.miss_blocks)
+    for b in np.unique(mplan.miss_blocks // plan.nbx):
+        lo, hi = int(b) * plan.nbx, (int(b) + 1) * plan.nbx
+        got = kernels.grid_add_merged_cuda(masked_gpu, plan, mplan, lo, hi)
+        torch.cuda.synchronize()
+        _gate(got, kernels.grid_add_merged_plain(masked, plan, mplan, lo, hi))
+    _gate(kernels.grid_add_scatter_cuda(quad_gpu, splan),
+          kernels.grid_add_scatter_plain(quad, splan))
+    got = kernels.grid_add_slots_cuda(quad_gpu, splan)
+    torch.cuda.synchronize()
+    _gate(got, kernels.grid_add_slots_plain(quad, splan))
+    bands = tgrid.subgrids_to_grid_ranges_streamed(sub.to(card), cx, cy, g, plan=plan, merge=16)
+    _gate(torch.cat(bands, dim=1), tgrid.subgrids_to_grid(sub, cx, cy, g))
+
+
+@pytest.mark.cuda
+def test_grid_add_launch_counters(card):
+    cx, cy, sub = _piece_problem(16, 512, 70)
+    g = 512
+    plan = tgrid.plan_grid_add_ranges(cx, cy, g, 16)
+    sub = sub.to(card)
+    kernels.reset_launch_counts()
+    tgrid.subgrids_to_grid_ranges(sub, cx, cy, g, plan=plan)             # sparse: K6
+    tgrid.subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=False, plan=plan)
+    tgrid.subgrids_to_grid_ranges_streamed(sub, cx, cy, g, plan=plan, merge=16)
+    for mode in ("vmem", "gather"):
+        tgrid.subgrids_to_grid_pallas(sub, cx, cy, g, mode=mode)
+    torch.cuda.synchronize()
+    assert kernels.grid_add_pieces_cuda.launches == 2
+    assert kernels.grid_add_merged_cuda.launches == 1      # one stripe at G = 512
+    assert kernels.grid_add_scatter_cuda.launches == 1
+    assert kernels.grid_add_slots_cuda.launches == 1
+    assert kernels.grid_add_cuda.launches == 0

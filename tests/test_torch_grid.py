@@ -332,19 +332,43 @@ def test_degrid_pipeline_matches_f64(problem):
     _gate(got, _f64_vis(problem))
 
 
-# (h) a sparse plan through the port's K4 dispatch -------------------------------
+# (h) the range dispatch: sparse plans to K6, tile-path plans to K4 ------------------
 
-def test_sparse_plan_runs_on_the_range_grid_add():
-    problem = _problem("sparse")
-    g, n = problem.params.grid_size, problem.params.subgrid_size
-    cx, cy = problem.coords
-    plan = tgrid.plan_grid_add_ranges(cx, cy, g, n)
-    assert plan.nbp > 2 * len(cx)   # the JAX package sends this plan to K6
-    sub = _port_subgrids(problem)
+def test_sparse_plan_runs_on_the_range_grid_add(monkeypatch):
+    """The port routes as the JAX package does (grid.py:1955-2011): the sparse
+    plan (nbp > 2·S) through the masked pieces and the piece grid-add K6, the
+    tile-path plan through K4, both from uv subgrids and from the fused
+    gridder's pieces (the pipeline). On CPU tensors each wrapper runs its
+    plain version, which the spies below count."""
+    import idg_tpu_torch.ops.cuda.grid as kgrid
+
+    calls = []
+    for name in ("grid_add_plain", "grid_add_pieces_plain"):
+        def spy(*args, _real=getattr(kgrid, name), _name=name, **kwargs):
+            calls.append(_name)
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(kgrid, name, spy)
     kernels.reset_launch_counts()
-    got = tgrid.subgrids_to_grid_ranges(sub, cx, cy, g, plan=plan)
-    _gate(got, _complex(jgrid.subgrids_to_grid(_pair(sub), cx, cy, g)))
-    assert kernels.grid_add_cuda.launches == 0    # CPU tensors: the plain version
+    for case, route, kernel in (("sparse", "sparse", "grid_add_pieces_plain"),
+                                ("tile", "tile", "grid_add_plain")):
+        problem = _problem(case)
+        g, n = problem.params.grid_size, problem.params.subgrid_size
+        cx, cy = problem.coords
+        plan = tgrid.plan_grid_add_ranges(cx, cy, g, n)
+        assert (plan.nbp > 2 * len(cx)) == (case == "sparse")
+        assert tgrid.ranges_route(plan) == route
+        sub = _port_subgrids(problem)
+        calls.clear()
+        got = tgrid.subgrids_to_grid_ranges(sub, cx, cy, g, plan=plan)
+        assert calls == [kernel]
+        _gate(got, _complex(jgrid.subgrids_to_grid(_pair(sub), cx, cy, g)))
+        want = jgrid.subgrids_to_grid_ranges(_pair(sub), cx, cy, g, apply_fft=True,
+                                             interpret=True)
+        _gate(got, _complex(want))
+        calls.clear()
+        _gate(_gridded_pipeline(problem), _complex(want))
+        assert calls == [kernel]
+    assert kernels.grid_add_cuda.launches == kernels.grid_add_pieces_cuda.launches == 0
 
 
 # wrappers and helpers ----------------------------------------------------------
