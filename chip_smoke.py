@@ -7,7 +7,7 @@ Phases, one or more lines each; any failure raises and the exit code is
 non-zero:
   1. device   the card's name and `nvidia-smi` name/power limit; exactly one
               visible CUDA device
-  2. build    both CUDA kernels from idg_tpu_torch/csrc, with ptxas's report
+  2. build    every CUDA kernel from idg_tpu_torch/csrc, with ptxas's report
   3. check    cuda_v6 / cuda_v7 against the f64 oracle at the 1e-5 gate, on
               the correctness-mode observation (w = 0) and on a w != 0
               observation where the API escalates the Taylor rank
@@ -41,6 +41,19 @@ non-zero:
               --method pallas, 16384² to-grid and to-subgrids) with counted
               launches; then phase 7 at LOFAR-4096 (GRID_SIZE=4096
               NR_STATIONS=27), whose grid pipeline must take K6 and not K4
+  9. direct   the exact full-phase rungs cuda_v1 / cuda_v2 of both workloads
+              (K8a, K9a) against the f64 oracle at w = 0 and w = 2·10⁴ with
+              no guard engaged, and the w-free rungs (gridder cuda_v7,
+              degridder cuda_v8) at w = 0 and through their fallback at
+              w != 0; K8a, K9a (v1, v2) and K10 (vadd) against their plain
+              versions (first 512 default subgrids; vadd exactly, at
+              n = 2^28), then timed both ways on the full problem (the plain
+              direct versions one call); `sweep --mode check` over every
+              version; both pipelines with --no-fuse --version cuda_v1
+              (counted launches; refused without --no-fuse); then this
+              slice's main path, perf mode for the four
+              direct versions and `vadd` with and without --cuda, with
+              counted launches, and the phase's seconds
 Then a JSON line of per-kernel results, the `nvidia-smi` line, and last the
 result line {"ok": true, "device": {...}}. Perf CSVs go to $OUTPUT_PATH, by
 default a fresh temporary directory.
@@ -62,6 +75,9 @@ GATE = 1e-5
 COMPARE_SUBGRIDS = 512
 LOFAR_4096 = dict(grid_size=4096, nr_stations=27)    # north-star config 3
 GRID_16384 = dict(grid_size=16384)                    # config 5's grid on one card
+STRESS_W = 2.0e4     # a w no Taylor rank reaches (tests/test_guards.py:171-185)
+DIRECT = (("gridder", "cuda_v1"), ("gridder", "cuda_v2"),
+          ("degridder", "cuda_v1"), ("degridder", "cuda_v2"))
 
 
 def launch_counts() -> dict:
@@ -91,7 +107,7 @@ def compare(name: str, got, want, exact: bool = False, tag: str = "grid") -> flo
     from idg_tpu_torch.utils.compare import check_error
 
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(torch.view_as_real(got)).all()):
+    if not bool(torch.isfinite(torch.view_as_real(got) if got.is_complex() else got).all()):
         raise RuntimeError(f"{name}: non-finite kernel output")
     want = want.to(got.device)
     max_abs = float((got - want).abs().max())
@@ -416,6 +432,179 @@ def grid_add_phase(rows, timing, plain_timing):
     pipeline_phase(rows, IDGParams.from_env(**LOFAR_4096), grid_add="grid_add_pieces_cuda")
 
 
+def direct_phase(rows, timing):
+    """Phase 9: the exact full-phase rungs (K8a, K9a), the w-free rungs and
+    K10: against the f64 oracle, against their plain versions on the card,
+    timed; the check sweep over every version; then perf mode for the four
+    direct versions and `vadd` both ways, with counted launches."""
+    import contextlib
+    import dataclasses
+    import io
+    import warnings
+
+    import torch
+
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.bench import V100_DEGRIDDER_REFERENCE_MVIS_S, V100_GRIDDER_REFERENCE_MVIS_S
+    from idg_tpu_torch.config import HarnessConfig, IDGParams
+    from idg_tpu_torch.data import (initialize_subgrids, make_observation,
+                                    make_perf_observation, make_w_observation)
+    from idg_tpu_torch.models.reference import degridder_reference, gridder_reference
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops import vadd as tvadd
+    from idg_tpu_torch.ops.api import _resolve, run_degridder, run_gridder
+    from idg_tpu_torch.ops.common import slice_staged, stage
+    from idg_tpu_torch.utils.compare import check_error
+    from idg_tpu_torch.utils.costs import workload_costs
+
+    t_start = time.perf_counter()
+
+    # against the f64 oracle at the correctness defaults: the direct rungs at
+    # w = 0 and w = 2·10⁴ with no guard engaged, the w-free rungs at w = 0 as
+    # themselves and at w != 0 (w_scale 1000) through their fallback
+    params = IDGParams.correctness_defaults()
+    obs0, _ = make_observation(params)
+    sub = initialize_subgrids(params.nr_subgrids, params.nr_correlations, params.subgrid_size)
+    uvw = np.array(obs0.uvw, copy=True)
+    uvw[:, :, 2] = STRESS_W
+    obs_stress = dataclasses.replace(obs0, uvw=uvw)
+    params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+
+    def oracle_check(label, workload, version, p, obs, resolves_to, warns):
+        with warnings.catch_warnings(record=True) as record:
+            warnings.simplefilter("always")
+            resolved = _resolve(workload, version, p, obs)
+            if workload == "gridder":
+                got, want = run_gridder(p, obs, version, device="cuda"), gridder_reference(p, obs)
+            else:
+                got = run_degridder(p, obs, sub, version, device="cuda")
+                want = degridder_reference(p, obs, sub)
+        res = check_error(got, want, verbose=False)
+        messages = [str(w.message) for w in record]
+        ok = res.passed and resolved[0] == resolves_to and (
+            any(warns in m for m in messages) if warns else not messages)
+        phase("direct", f"{workload} {version} {label}: resolved {resolved}, mean_error "
+                        f"{res.mean_error:.3e} (gate {GATE:g}), warnings {len(messages)} "
+                        f"{'PASSED' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"{workload} {version} {label} failed: {messages}")
+
+    for workload, version in DIRECT:
+        for label, obs in (("w=0", obs0), (f"w={STRESS_W:g}", obs_stress)):
+            oracle_check(label, workload, version, params, obs, version, None)
+    for workload, rung, fallback in (("gridder", "cuda_v7", "cuda_v6"),
+                                     ("degridder", "cuda_v8", "cuda_v7")):
+        oracle_check("w=0", workload, rung, params, obs0, rung, None)
+        oracle_check("w!=0 (w_scale 1000)", workload, rung, params_w, obs_w, fallback, "w-free")
+
+    # each kernel against its plain version on the first 512 subgrids of the
+    # default problem, then both timed on the full problem; the plain direct
+    # versions materialize a phasor per (visibility, pixel): one timed call
+    params = IDGParams.from_env()
+    stg = stage(params, make_perf_observation(params), "cuda")
+    sub_t = torch.as_tensor(np.ascontiguousarray(initialize_subgrids(
+        params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
+    k = COMPARE_SUBGRIDS
+    small = slice_staged(stg, 0, k)
+    plain_once = HarnessConfig(nr_warm_up_runs=0, nr_iterations=1, nr_windows=1)
+    cases = []
+    for rec, v in ((False, "v1"), (True, "v2")):
+        cases += [
+            (f"gridder_cuda_{v}", getattr(kernels, f"gridder_cuda_{v}"),
+             lambda p, s, rec=rec: kernels.gridder_direct_plain(p, s, rec),
+             (params, small), (params, stg),
+             "idg_tpu_torch/csrc/gridder_direct.cu", "idg_tpu/ops/pallas/gridder.py:334"),
+            (f"degridder_cuda_{v}", getattr(kernels, f"degridder_cuda_{v}"),
+             lambda p, s, sb, rec=rec: kernels.degridder_direct_plain(p, s, sb, rec),
+             (params, small, sub_t[:k]), (params, stg, sub_t),
+             "idg_tpu_torch/csrc/degridder_direct.cu", "idg_tpu/ops/pallas/degridder.py:127"),
+        ]
+    for name, kernel, plain, small_args, full_args, source, replaces in cases:
+        max_abs = compare(f"{name} vs plain on {k} subgrids", kernel(*small_args),
+                          plain(*small_args), tag="direct")
+        full = kernel(*full_args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(torch.view_as_real(full)).all()):
+            raise RuntimeError(f"{name}: non-finite output on the full problem")
+        del full
+        k_ms = device_ms(kernel, *full_args, harness=timing)
+        p_ms = device_ms(plain, *full_args, harness=plain_once)
+        phase("direct", f"{name} full problem ({params.nr_subgrids} subgrids): kernel "
+                        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (one timed call)")
+        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                         launches=0, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms))
+    del stg, small, sub_t
+    torch.cuda.empty_cache()
+
+    n = tvadd.DEFAULT_N
+    x, y = tvadd.make_vadd_inputs(n, "cuda")
+    max_abs = compare(f"vadd_cuda vs plain (n = {n})", kernels.vadd_cuda(x, y),
+                      tvadd.vadd_plain(x, y), exact=True, tag="direct")
+    k_ms = device_ms(kernels.vadd_cuda, x, y, harness=timing)
+    p_ms = device_ms(tvadd.vadd_plain, x, y, harness=timing)
+    phase("direct", f"vadd_cuda (n = {n}, {tvadd.vadd_gbytes(n):.3f} GB): kernel {k_ms:.3f} ms "
+                    f"({tvadd.vadd_gbytes(n) / k_ms:.3f} TB/s), plain {p_ms:.3f} ms")
+    rows.append(dict(name="vadd_cuda", route="cuda", source="idg_tpu_torch/csrc/vadd.cu",
+                     replaces="idg_tpu/ops/vadd.py:22", launches=0, max_abs_err=max_abs,
+                     ms=k_ms, plain_ms=p_ms))
+    del x, y
+    torch.cuda.empty_cache()
+
+    # the check sweep over every registered version, through the CLI
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["sweep", "--mode", "check"])
+    for line in out.getvalue().splitlines():
+        if line.startswith(("===", ">>> Result", "!!!", "FAILED")):
+            phase("direct", f"sweep: {line}")
+    if rc != 0:
+        raise RuntimeError(f"sweep --mode check exited {rc}")
+
+    # the direct rungs have no fused form: the pipelines take them with
+    # --no-fuse and refuse them without
+    for direction, name in (("grid", "gridder_cuda_v1"), ("degrid", "degridder_cuda_v1")):
+        kernels.reset_launch_counts()
+        res = cli._pipeline_one(direction, version="cuda_v1", no_fuse=True, suffix="_nofuse")
+        launched = launch_counts()[name]
+        finite = bool(torch.isfinite(torch.view_as_real(res.output)).all())
+        phase("direct", f"{res.name}: {res.seconds * 1e3:.3f} ms/pass, kernel "
+                        f"{res.kernel_seconds * 1e3:.3f} ms; {name} launches {launched}; "
+                        f"output finite {finite}")
+        if not launched or not finite:
+            raise RuntimeError(f"pipeline --direction {direction} --no-fuse --version cuda_v1 failed")
+        del res
+        try:
+            cli._pipeline_one(direction, version="cuda_v1")
+        except ValueError as exc:
+            phase("direct", f"pipeline --direction {direction} --version cuda_v1: refused ({exc})")
+        else:
+            raise RuntimeError(f"pipeline --direction {direction} took cuda_v1 without --no-fuse")
+        torch.cuda.empty_cache()
+
+    # the main path of this slice: perf mode for the direct versions and
+    # vadd both ways, counts set to 0 just before and read just after
+    _, _, mvis = workload_costs(params)
+    kernels.reset_launch_counts()
+    seconds = {f"{w}_{v}": cli._perf_one(w, v) for w, v in DIRECT}
+    vadd_s = {"vadd_cuda": cli._vadd_one(n, cuda=True), "vadd": cli._vadd_one(n)}
+    counts = launch_counts()
+    by_name = {row["name"]: row for row in rows}
+    anchors = {"gridder": V100_GRIDDER_REFERENCE_MVIS_S,
+               "degridder": V100_DEGRIDDER_REFERENCE_MVIS_S}   # the naive reference kernels
+    for name, s in seconds.items():
+        anchor = anchors[name.split("_")[0]]
+        phase("perf", f"{name}: {s * 1e3:.3f} ms/pass, {mvis / s:.2f} MVis/s "
+                      f"({mvis / s / anchor:.1f}x the V100 naive {anchor}), "
+                      f"launches {counts[name]}")
+    phase("perf", f"vadd --cuda {vadd_s['vadd_cuda'] * 1e3:.3f} ms, vadd (plain x + y) "
+                  f"{vadd_s['vadd'] * 1e3:.3f} ms; launches {counts['vadd_cuda']}")
+    for name in [*seconds, "vadd_cuda"]:
+        by_name[name]["launches"] = counts[name]
+        if counts[name] == 0:
+            raise RuntimeError(f"{name} was never launched on the main path")
+    phase("direct", f"phase 9: {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -560,6 +749,9 @@ def main() -> int:
 
     # 8. the grid-add kernels, the `grid` command and LOFAR-4096
     grid_add_phase(rows, timing, plain_timing)
+
+    # 9. the direct rungs, the w-free rungs, sweep and vadd
+    direct_phase(rows, timing)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

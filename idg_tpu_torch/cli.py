@@ -7,8 +7,12 @@ mode and device, and honors the same env vars.
 
   python -m idg_tpu_torch run --workload gridder --version cuda_v6 --mode check
   python -m idg_tpu_torch run --workload degridder --version cuda_v7 --mode perf
+  python -m idg_tpu_torch run --workload gridder --version cuda_v1 --w-obs
+  python -m idg_tpu_torch sweep --mode check --device cpu
+  python -m idg_tpu_torch vadd --cuda
   python -m idg_tpu_torch pipeline --direction grid
   python -m idg_tpu_torch pipeline --direction degrid --no-fuse --suffix _nofuse
+  python -m idg_tpu_torch pipeline --no-fuse --version cuda_v1
   python -m idg_tpu_torch grid --method pallas
   GRID_SIZE=16384 python -m idg_tpu_torch grid --direction to-subgrids
   python -m idg_tpu_torch list
@@ -22,13 +26,43 @@ import dataclasses
 import sys
 
 
+def _perf_problem(workload: str, version: str, w_rank: int | None = None, params=None,
+                  name_suffix: str = "", w_obs: bool = False):
+    """Perf mode's host side: the observation (`make_perf_observation`, or
+    with `w_obs` the nonzero-w `make_w_observation`), the degridder's input
+    subgrids, the API guards' resolution, made once here before staging, and
+    the report/CSV name after the kernel actually timed: the resolved version,
+    `_fb` when the guards fell back, then `name_suffix` and `_wobs`
+    (idg_tpu/cli.py:77-96,171-173). Returns (params, obs, subgrids, version,
+    w_rank, name)."""
+    from .config import IDGParams
+    from .data import initialize_subgrids, make_perf_observation, make_w_observation
+    from .ops.api import _resolve
+
+    if params is None:
+        params = IDGParams.from_env()
+    if w_obs:
+        params, obs, _ = make_w_observation(params)
+        name_suffix += "_wobs"
+    else:
+        obs = make_perf_observation(params)
+    subgrids = None
+    if workload == "degridder":
+        subgrids = initialize_subgrids(
+            params.nr_subgrids, params.nr_correlations, params.subgrid_size
+        )
+    rversion, rw_rank = _resolve(workload, version, params, obs, w_rank)
+    fb = "_fb" if rversion != version else ""
+    return params, obs, subgrids, rversion, rw_rank, f"{workload}_{rversion}{fb}{name_suffix}"
+
+
 def _perf_one(workload: str, version: str, w_rank: int | None = None,
-              params=None, device: str = "cuda") -> float:
+              params=None, device: str = "cuda", name_suffix: str = "",
+              w_obs: bool = False) -> float:
     """Performance mode (p_run_gridder_ semantics, app/CUDA/util.cpp:172-249):
-    stage once, time bare kernel launches, print and write the CSV. Returns
-    the min-of-windows seconds per launch."""
-    from .config import HarnessConfig, IDGParams
-    from .data import initialize_subgrids, make_perf_observation
+    stage once, time bare kernel launches, print and write the CSV, named as
+    `_perf_problem` says. Returns the min-of-windows seconds per launch."""
+    from .config import HarnessConfig
     from .ops.api import resolve_device, staged_runner
     from .utils.costs import workload_costs
     from .utils.printing import print_device_info, print_parameters
@@ -38,24 +72,40 @@ def _perf_one(workload: str, version: str, w_rank: int | None = None,
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("perf mode times the card; it needs --device cuda")
-    if params is None:
-        params = IDGParams.from_env()
     harness = HarnessConfig.from_env()
     print_device_info()
-    obs = make_perf_observation(params)
+    params, obs, subgrids, version, w_rank, name = _perf_problem(
+        workload, version, w_rank, params, name_suffix, w_obs)
     print_parameters(params)
-    subgrids = None
-    if workload == "degridder":
-        subgrids = initialize_subgrids(
-            params.nr_subgrids, params.nr_correlations, params.subgrid_size
-        )
     fn, args = staged_runner(workload, version, params, obs, subgrids,
                              w_rank=w_rank, device=dev)
     timing = time_kernel(fn, *args, harness=harness)
     gflops, gbytes, mvis = workload_costs(params)
-    name = f"{workload}_{version}"
     report(name, timing.seconds, gflops, gbytes, mvis, seconds_std=timing.seconds_std)
     report_csv(name, device_name(), timing.seconds, gflops, gbytes, mvis,
+               output_path=harness.output_path, seconds_std=timing.seconds_std)
+    return timing.seconds
+
+
+def _vadd_one(n: int, cuda: bool = False) -> float:
+    """The bandwidth smoke benchmark (the res/vadd counterpart), timed on the
+    card: K10 with `cuda`, plain x + y without, as the JAX package's default
+    times XLA's. CSV `vadd_cuda` / `vadd`. Returns seconds per call."""
+    from .config import HarnessConfig
+    from .ops.api import resolve_device
+    from .ops.vadd import make_vadd_inputs, vadd_cuda, vadd_gbytes, vadd_plain
+    from .utils.printing import print_device_info
+    from .utils.report import device_name, report, report_csv
+    from .utils.timing import time_kernel
+
+    dev = resolve_device("cuda")
+    print_device_info()
+    harness = HarnessConfig.from_env()
+    x, y = make_vadd_inputs(n, dev)
+    timing = time_kernel(vadd_cuda if cuda else vadd_plain, x, y, harness=harness)
+    name, gbytes = ("vadd_cuda" if cuda else "vadd"), vadd_gbytes(n)
+    report(name, timing.seconds, 0.0, gbytes, seconds_std=timing.seconds_std)
+    report_csv(name, device_name(), timing.seconds, 0.0, gbytes,
                output_path=harness.output_path, seconds_std=timing.seconds_std)
     return timing.seconds
 
@@ -396,9 +446,53 @@ def cmd_pipeline(args) -> int:
 
 def cmd_run(args) -> int:
     if args.mode == "perf":
-        _perf_one(args.workload, args.version, args.w_rank, device=args.device)
+        _perf_one(args.workload, args.version, args.w_rank, device=args.device,
+                  name_suffix=args.suffix, w_obs=args.w_obs)
         return 0
     return 0 if _check_one(args.workload, args.version, args.device).passed else 1
+
+
+def cmd_sweep(args) -> int:
+    """Run all (or the selected) versions of the chosen workloads, the
+    run_perf_cuda.sh counterpart (idg_tpu/cli.py:253-290). `--stations N`
+    shrinks the perf problem; `--fullsize` runs the reference perf defaults
+    and suffixes the CSV names with `_fullsize`. A version that fails or
+    errors is reported and the sweep goes on; the exit code is 1 if any
+    did. A missing card is no version's failure: it exits 2 before any."""
+    from .config import IDGParams
+    from .ops.api import resolve_device
+    from .ops.registry import list_kernels
+
+    resolve_device(args.device)
+    params, suffix = None, ""
+    if args.fullsize:
+        params, suffix = IDGParams.from_env(), "_fullsize"
+    elif args.stations:
+        params = IDGParams.from_env(nr_stations=args.stations)
+    failed = []
+    for workload in args.workloads.split(","):
+        versions = ([e.version for e in list_kernels(workload)] if args.versions == "all"
+                    else args.versions.split(","))
+        for version in versions:
+            print(f"=== {workload} {version} ({args.mode}) ===", flush=True)
+            try:
+                if args.mode == "perf":
+                    _perf_one(workload, version, params=params, device=args.device,
+                              name_suffix=suffix)
+                elif not _check_one(workload, version, args.device).passed:
+                    failed.append((workload, version))
+            except Exception as exc:  # keep sweeping, report at the end
+                print(f"!!! {workload} {version} errored: {exc}")
+                failed.append((workload, version))
+    if failed:
+        print("FAILED:", ", ".join(f"{w}/{v}" for w, v in failed))
+        return 1
+    return 0
+
+
+def cmd_vadd(args) -> int:
+    _vadd_one(args.n, args.cuda)
+    return 0
 
 
 def cmd_list(args) -> int:
@@ -432,7 +526,31 @@ def main(argv=None) -> int:
                        help="cuda (the kernels) or cpu (their plain PyTorch versions)")
     p_run.add_argument("--w-rank", type=int, default=None,
                        help="w-term Taylor rank override (1 is exact for w==0 data)")
+    p_run.add_argument("--w-obs", action="store_true",
+                       help="perf: use the nonzero-w generator (w-plane metadata; "
+                            "CSV suffixed _wobs)")
+    p_run.add_argument("--suffix", default="",
+                       help="perf: extra CSV/report name suffix (e.g. _lofar4096)")
     p_run.set_defaults(fn=cmd_run)
+
+    p_sweep = sub.add_parser("sweep", help="run many kernels (run_perf_cuda.sh counterpart)")
+    p_sweep.add_argument("--workloads", default="gridder,degridder")
+    p_sweep.add_argument("--versions", default="all",
+                         help="comma-separated registry versions, or all")
+    p_sweep.add_argument("--mode", choices=["perf", "check"], default="perf")
+    p_sweep.add_argument("--stations", type=int, default=None,
+                         help="perf: shrink the problem to N stations")
+    p_sweep.add_argument("--fullsize", action="store_true",
+                         help="perf: reference perf defaults + _fullsize CSV suffix")
+    p_sweep.add_argument("--device", default="cuda",
+                         help="cuda, or cpu for check mode's plain PyTorch versions")
+    p_sweep.set_defaults(fn=cmd_sweep)
+
+    p_vadd = sub.add_parser("vadd", help="bandwidth smoke benchmark (on the card)")
+    p_vadd.add_argument("--n", type=int, default=256 * 1024 * 1024)
+    p_vadd.add_argument("--cuda", action="store_true",
+                        help="time the hand-written kernel K10 (default: plain x + y)")
+    p_vadd.set_defaults(fn=cmd_vadd)
 
     p_pipe = sub.add_parser(
         "pipeline",

@@ -118,20 +118,10 @@ __global__ void __launch_bounds__(kThreads) degridder_kernel(
       const float2 v = kFuse ? s_sub[i * nn + q] : sub_s[i * nn + q];
       p[i] = make_float2(v.x * taper, v.y * taper);
     }
-    const float2* a = aterms + (at1 + q) * kPols;
-    const float2* b = aterms + (at2 + q) * kPols;
-    const float2 a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];
-    const float2 b0 = b[0], b1 = b[1], b2 = b[2], b3 = b[3];
-    const float2 t0 = cadd(cmul(a0, p[0]), cmul(a1, p[2]));
-    const float2 t1 = cadd(cmul(a0, p[1]), cmul(a1, p[3]));
-    const float2 t2 = cadd(cmul(a2, p[0]), cmul(a3, p[2]));
-    const float2 t3 = cadd(cmul(a2, p[1]), cmul(a3, p[3]));
-    const float2 o0 = cadd(cmul_by_conj(t0, b0), cmul_by_conj(t1, b1));
-    const float2 o1 = cadd(cmul_by_conj(t0, b2), cmul_by_conj(t1, b3));
-    const float2 o2 = cadd(cmul_by_conj(t2, b0), cmul_by_conj(t3, b1));
-    const float2 o3 = cadd(cmul_by_conj(t2, b2), cmul_by_conj(t3, b3));
-    s_pix[2 * q + 0] = make_float4(o0.x, o0.y, o1.x, o1.y);
-    s_pix[2 * q + 1] = make_float4(o2.x, o2.y, o3.x, o3.y);
+    float2 o[kPols];
+    jones_degridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, p, o);
+    s_pix[2 * q + 0] = make_float4(o[0].x, o[0].y, o[1].x, o[1].y);
+    s_pix[2 * q + 1] = make_float4(o[2].x, o[2].y, o[3].x, o[3].y);
     s_n[q] = n[q];
   }
   __syncthreads();

@@ -143,19 +143,8 @@ __global__ void __launch_bounds__(kThreads) gridder_kernel(
 #pragma unroll
   for (int i = 0; i < kPix; ++i) {
     const int q = tid + i * kThreads;
-    const float2* a = aterms + (at1 + q) * kPols;
-    const float2* b = aterms + (at2 + q) * kPols;
-    const float2 a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3];
-    const float2 b0 = b[0], b1 = b[1], b2 = b[2], b3 = b[3];
-    const float2 p0 = acc[i][0], p1 = acc[i][1], p2 = acc[i][2], p3 = acc[i][3];
-    const float2 t0 = cadd(cmul_conj(a0, p0), cmul_conj(a2, p2));
-    const float2 t1 = cadd(cmul_conj(a0, p1), cmul_conj(a2, p3));
-    const float2 t2 = cadd(cmul_conj(a1, p0), cmul_conj(a3, p2));
-    const float2 t3 = cadd(cmul_conj(a1, p1), cmul_conj(a3, p3));
-    const float2 o[kPols] = {
-        cadd(cmul(t0, b0), cmul(t1, b2)), cadd(cmul(t0, b1), cmul(t1, b3)),
-        cadd(cmul(t2, b0), cmul(t3, b2)), cadd(cmul(t2, b1), cmul(t3, b3)),
-    };
+    float2 o[kPols];
+    jones_gridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, acc[i], o);
     const float taper = sph[q];
 #pragma unroll
     for (int p = 0; p < kPols; ++p) {

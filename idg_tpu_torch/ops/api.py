@@ -11,6 +11,7 @@ from __future__ import annotations
 import inspect
 import math
 import warnings
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -84,52 +85,103 @@ def required_w_rank(params: IDGParams, obs: Observation,
     return None
 
 
+@lru_cache(maxsize=None)
+def _accepts(workload: str, version: str, param: str) -> bool:
+    return param in inspect.signature(get_kernel(workload, version).fn).parameters
+
+
 def _resolve(workload: str, version: str, params: IDGParams,
              obs: Observation, w_rank=None):
     """Apply the API-boundary correctness guards; returns (version, w_rank),
-    w_rank None meaning the kernel's default rank.
+    w_rank None meaning the kernel's default rank (or no rank, for a kernel
+    that takes none). The semantics of idg_tpu/ops/api.py:_resolve:
 
-    1. A channel-recurrence kernel assumes uniform wavenumber spacing; with
-       no fallback rung ported yet, non-uniform input raises.
-    2. The w·n Taylor rank escalates when the observation's w range needs
-       it, and raises past MAX_W_RANK: no direct full-phase kernel is
-       ported yet, and a kernel that misses the gate must not run.
+    1. A channel-recurrence kernel assumes uniform wavenumber spacing; on
+       non-uniform input it falls back, with a warning, to its registered
+       non-recurrence rung.
+    2. A kernel that takes a Taylor rank of the w·n term gets the rank the
+       observation's w range needs, and raises past MAX_W_RANK, pointing to
+       the direct full-phase kernel. A fixed-rank w-free rung falls back to
+       its registered rung when its rank is short. A direct kernel is exact
+       in w: the required rank is not computed for it at all.
 
     An explicit w_rank is an override (benchmark knob), with a warning when
-    it is below the required rank.
+    it is below the required rank, or when the kernel takes no rank.
     """
     entry = get_kernel(workload, version)
     if entry.uniform_channels and not uniform_channel_spacing(obs.wavenumbers):
-        raise ValueError(
-            f"{workload} {version} assumes uniform channel spacing and the "
-            "observation's wavenumbers are non-uniform; no fallback is "
-            "registered — pick a non-recurrence version"
-        )
-    default = inspect.signature(entry.fn).parameters["w_rank"].default
-    need = required_w_rank(params, obs)
-    if w_rank is not None:
-        if need is not None and w_rank < need:
-            warnings.warn(
-                f"w_rank={w_rank} override is below the required rank {need} "
-                f"for this observation's w range (|mu*n| bound exceeds "
-                f"{W_TAYLOR_TOL:g}); results may miss the 1e-5 gate",
-                stacklevel=3,
+        if entry.fallback is None:
+            raise ValueError(
+                f"{workload} {version} assumes uniform channel spacing and the "
+                "observation's wavenumbers are non-uniform; no fallback is "
+                "registered — pick a non-recurrence version"
             )
-        return version, w_rank
-    if need is None:
-        raise ValueError(
-            f"{workload} {version}: the observation's w range puts |mu*n| "
-            f"beyond rank-{MAX_W_RANK} Taylor accuracy; a direct full-phase "
-            "kernel is needed and none is ported yet"
+        warnings.warn(
+            f"{workload} {version} assumes uniform channel spacing; "
+            f"wavenumbers are non-uniform — falling back to {entry.fallback}",
+            stacklevel=3,
         )
-    if need > default:
-        return version, need
+        version = entry.fallback
+        entry = get_kernel(workload, version)
+
+    takes_rank = _accepts(workload, version, "w_rank")
+    # a host pass over the observation's w values; the direct kernels never read it
+    need = (required_w_rank(params, obs)
+            if takes_rank or entry.fixed_w_rank is not None else None)
+    if w_rank is not None:
+        if takes_rank:
+            if need is not None and w_rank < need:
+                warnings.warn(
+                    f"w_rank={w_rank} override is below the required rank {need} "
+                    f"for this observation's w range (|mu*n| bound exceeds "
+                    f"{W_TAYLOR_TOL:g}); results may miss the 1e-5 gate",
+                    stacklevel=3,
+                )
+            return version, w_rank
+        warnings.warn(
+            f"{workload} {version} takes no w_rank"
+            + (f" (fixed w-term rank {entry.fixed_w_rank})" if entry.fixed_w_rank else "")
+            + f"; the w_rank={w_rank} override is ignored",
+            stacklevel=3,
+        )
+    if takes_rank:
+        if need is None:
+            raise ValueError(
+                f"{workload} {version}: the observation's w range puts |mu*n| "
+                f"beyond rank-{MAX_W_RANK} Taylor accuracy; use a direct "
+                "full-phase kernel (cuda_v1)"
+            )
+        default = inspect.signature(entry.fn).parameters["w_rank"].default
+        return version, (need if need > default else None)
+    if entry.fixed_w_rank is not None and (need is None or need > entry.fixed_w_rank):
+        if need is None or entry.fallback is None:
+            # past MAX_W_RANK no low-rank rung meets the gate, and with no
+            # fallback there is nothing to escalate to
+            raise ValueError(
+                f"{workload} {version} is a rank-{entry.fixed_w_rank} w-free "
+                "specialization but the observation's w range needs "
+                + (f"Taylor rank {need}; no fallback is registered — " if need is not None
+                   else f"more than rank-{MAX_W_RANK} Taylor accuracy; ")
+                + "use a direct full-phase kernel (cuda_v1)"
+            )
+        warnings.warn(
+            f"{workload} {version} is a rank-{entry.fixed_w_rank} w-free "
+            f"specialization but the observation needs Taylor rank {need} — "
+            f"falling back to {entry.fallback}",
+            stacklevel=3,
+        )
+        return entry.fallback, (need if _accepts(workload, entry.fallback, "w_rank") else None)
     return version, None
 
 
-def _rank(workload: str, version: str, w_rank):
+def _rank_args(workload: str, version: str, w_rank) -> tuple:
+    """The rank argument of a kernel call: (rank,) for a kernel that takes a
+    w_rank (its default when w_rank is None), () for one that takes none
+    (the direct and the fixed-rank kernels)."""
+    if not _accepts(workload, version, "w_rank"):
+        return ()
     fn = get_kernel(workload, version).fn
-    return w_rank or inspect.signature(fn).parameters["w_rank"].default
+    return (w_rank or inspect.signature(fn).parameters["w_rank"].default,)
 
 
 def run_gridder(params: IDGParams, obs: Observation, version: str = "cuda_v6",
@@ -139,7 +191,7 @@ def run_gridder(params: IDGParams, obs: Observation, version: str = "cuda_v6",
     version, w_rank = _resolve("gridder", version, params, obs, w_rank)
     stg = stage(params, obs, dev)
     fn = get_kernel("gridder", version).fn
-    return fn(params, stg, _rank("gridder", version, w_rank))
+    return fn(params, stg, *_rank_args("gridder", version, w_rank))
 
 
 def run_degridder(params: IDGParams, obs: Observation, subgrids,
@@ -150,7 +202,7 @@ def run_degridder(params: IDGParams, obs: Observation, subgrids,
     stg = stage(params, obs, dev, with_vis=False)
     sub = torch.as_tensor(np.ascontiguousarray(subgrids, np.complex64), device=dev)
     fn = get_kernel("degridder", version).fn
-    return fn(params, stg, sub, _rank("degridder", version, w_rank))
+    return fn(params, stg, sub, *_rank_args("degridder", version, w_rank))
 
 
 def staged_runner(workload: str, version: str, params: IDGParams, obs: Observation,
@@ -162,13 +214,13 @@ def staged_runner(workload: str, version: str, params: IDGParams, obs: Observati
     dev = resolve_device(device)
     version, w_rank = _resolve(workload, version, params, obs, w_rank)
     fn = get_kernel(workload, version).fn
-    rank = _rank(workload, version, w_rank)
+    rank = _rank_args(workload, version, w_rank)
     if workload == "gridder":
-        return fn, (params, stage(params, obs, dev), rank)
+        return fn, (params, stage(params, obs, dev), *rank)
     # the degridder has no visibility input: leave the 1.6 GB behind
     stg = stage(params, obs, dev, with_vis=False)
     sub = torch.as_tensor(np.ascontiguousarray(subgrids, np.complex64), device=dev)
-    return fn, (params, stg, sub, rank)
+    return fn, (params, stg, sub, *rank)
 
 
 # The gridder versions with a fused grid-stage epilogue
@@ -228,8 +280,8 @@ def staged_gridder_pieces_runner(params: IDGParams, obs: Observation, version: s
     if version not in PIECES_GRIDDERS:
         return None, None, version
     oyx_dev = torch.as_tensor(np.asarray(oyx, np.int32), device=dev)
-    rank = _rank("gridder", version, w_rank)
-    return gridder_cuda_v6_pieces, (params, stage(params, obs, dev), oyx_dev, rank), version
+    rank = _rank_args("gridder", version, w_rank)
+    return gridder_cuda_v6_pieces, (params, stage(params, obs, dev), oyx_dev, *rank), version
 
 
 def staged_degridder_consumer(params: IDGParams, obs: Observation,
@@ -240,9 +292,9 @@ def staged_degridder_consumer(params: IDGParams, obs: Observation,
     dev = resolve_device(device)
     version, w_rank = _resolve("degridder", version, params, obs, w_rank)
     kernel = get_kernel("degridder", version).fn
-    rank = _rank("degridder", version, w_rank)
+    rank = _rank_args("degridder", version, w_rank)
     stg = stage(params, obs, dev, with_vis=False)
-    return (lambda sub: kernel(params, stg, sub, rank)), version
+    return (lambda sub: kernel(params, stg, sub, *rank)), version
 
 
 def staged_degridder_pieces_chunk_consumers(params: IDGParams, obs: Observation,
@@ -261,11 +313,11 @@ def staged_degridder_pieces_chunk_consumers(params: IDGParams, obs: Observation,
     if version not in FUSED_DEGRIDDERS:
         return None, None, version
     kernel = get_kernel("degridder", version).fn
-    rank = _rank("degridder", version, w_rank)
+    rank = _rank_args("degridder", version, w_rank)
     stg = stage(params, obs, dev, with_vis=False)
     oyx_dev = torch.as_tensor(np.asarray(oyx, np.int32), device=dev)
 
     def consumer(pieces):
-        return kernel(params, stg, pieces, rank, fuse_oyx=oyx_dev)
+        return kernel(params, stg, pieces, *rank, fuse_oyx=oyx_dev)
 
     return [consumer], [(0, stg.nr_subgrids)], version

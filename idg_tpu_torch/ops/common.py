@@ -68,7 +68,8 @@ def phase_offset_parts(params: IDGParams, metadata: Metadata):
     """Separable split of the exact phase offset: po ≡ po_x[s,x] + po_y[s,y]
     (mod 2π), each part reduced mod 2π in integer arithmetic, f32[S, N]
     each. e^{i·po} = e^{i·po_x}·e^{i·po_y} wherever the mod falls, so the
-    factorization is exact. The w_step part rides in μ (`w_offset_scalar`)."""
+    factorization is exact. The w_step part rides in μ (`w_offset_scalar`)
+    for the separable kernels, and in w_off·n for the direct ones."""
     N, G = params.subgrid_size, params.grid_size
     ix = metadata.coord_x.to(torch.int64) + (N // 2 - G // 2)
     iy = metadata.coord_y.to(torch.int64) + (N // 2 - G // 2)
@@ -121,6 +122,7 @@ class Staged:
     uvw: torch.Tensor            # f32[S, T, 3]
     vis: torch.Tensor | None     # c64[S, T, C, P] (gridder input only)
     mu: torch.Tensor             # f32[S, T, C]  μ = w_off − w·k_c
+    w_off: torch.Tensor          # f32[S]  2π·w_step·(z+0.5) (the direct kernels' w_off·n)
     wavenumbers: torch.Tensor    # f32[C]
     po_x: torch.Tensor           # f32[S, N]
     po_y: torch.Tensor           # f32[S, N]
@@ -198,6 +200,7 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
         uvw=uvw.contiguous(),
         vis=vis.contiguous() if with_vis else None,
         mu=mu.contiguous(),
+        w_off=w_off,
         wavenumbers=k,
         po_x=po_x.contiguous(),
         po_y=po_y.contiguous(),
@@ -214,7 +217,7 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
 
 def slice_staged(stg: Staged, lo: int, hi: int) -> Staged:
     """The subgrids [lo, hi) of a staging (shared planes pass through)."""
-    per_subgrid = ("uvw", "vis", "mu", "po_x", "po_y",
+    per_subgrid = ("uvw", "vis", "mu", "w_off", "po_x", "po_y",
                    "aterm_index", "station1", "station2")
     return dataclasses.replace(stg, **{
         name: getattr(stg, name)[lo:hi].contiguous()

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# pointer args, int args, then the stream, per entry point
+_L = ctypes.c_longlong
+# pointer args, integer args, then the stream, per entry point
 SIGNATURES = {
     "idg_gridder_v6": [_P] * 15 + [_I] * 6 + [_P],
     "idg_gridder_v6_pieces": [_P] * 17 + [_I] * 6 + [_P],
@@ -45,6 +46,9 @@ SIGNATURES = {
     "idg_grid_add_merged": [_P] * 6 + [_I] * 7 + [_P],
     "idg_grid_add_scatter": [_P] * 3 + [_I] * 4 + [_P],
     "idg_grid_add_slots": [_P] * 3 + [_I] * 6 + [_P],
+    "idg_gridder_direct": [_P] * 15 + [_I] * 6 + [_P],
+    "idg_degridder_direct": [_P] * 15 + [_I] * 6 + [_P],
+    "idg_vadd": [_P] * 3 + [_L] + [_P],
 }
 
 _library = None

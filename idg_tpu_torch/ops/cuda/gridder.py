@@ -94,13 +94,15 @@ def gridder_plain(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):
     return out
 
 
-def _check_staged(params: IDGParams, stg: Staged, w_rank: int) -> None:
+def _check_staged(params: IDGParams, stg: Staged, w_rank: int | None) -> None:
+    """The sizes the kernels are built for; w_rank None for the direct kernels,
+    which take none."""
     N = params.subgrid_size
     if N not in SUBGRID_SIZES:
         raise ValueError(f"subgrid_size {N} not supported; the kernels take {SUBGRID_SIZES}")
     if params.nr_correlations != 4:
         raise ValueError("the kernels take 4 correlations (xx, xy, yx, yy)")
-    if not 1 <= w_rank <= MAX_W_RANK:
+    if w_rank is not None and not 1 <= w_rank <= MAX_W_RANK:
         raise ValueError(f"w_rank {w_rank} outside [1, {MAX_W_RANK}]")
 
 
@@ -122,7 +124,8 @@ def check_staging(params: IDGParams, stg: Staged, with_vis: bool) -> None:
     ts, st = stg.aterms.shape[:2]
     f32, i32, c64 = torch.float32, torch.int32, torch.complex64
     specs = [
-        ("uvw", f32, (S, T, 3)), ("mu", f32, (S, T, C)), ("wavenumbers", f32, (C,)),
+        ("uvw", f32, (S, T, 3)), ("mu", f32, (S, T, C)), ("w_off", f32, (S,)),
+        ("wavenumbers", f32, (C,)),
         ("po_x", f32, (S, N)), ("po_y", f32, (S, N)), ("l", f32, (N,)), ("m", f32, (N,)),
         ("n", f32, (N, N)), ("sph", f32, (N, N)), ("aterms", c64, (ts, st, N, N, P)),
         ("aterm_index", i32, (S,)), ("station1", i32, (S,)), ("station2", i32, (S,)),
@@ -178,6 +181,22 @@ def gridder_cuda_v6(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK
 
 
 gridder_cuda_v6.launches = 0
+
+
+@register(
+    "gridder", "cuda_v7",
+    "w-free specialization: cuda_v6 at rank 1 (drops the w-term correction; "
+    "exact for w==0 data); counterpart of pallas_v7",
+    family="cuda", fallback="cuda_v6", fixed_w_rank=1,
+)
+def gridder_cuda_v7(params: IDGParams, stg: Staged):
+    """K1 at Taylor rank 1, non-fused; exact for w ≡ 0 observations (every
+    in-tree generator). On w ≠ 0 data the API guard falls back to cuda_v6 at
+    the rank the observation needs: JAX's pallas_v7 names pallas_v4, the port
+    the nearest ported rung that takes a rank and assumes nothing about the
+    channel spacing. K1 has no channel recurrence, so the rung is not marked
+    uniform_channels. Its launches count on `gridder_cuda_v6`."""
+    return gridder_cuda_v6(params, stg, 1)
 
 
 def gridder_v6_pieces_plain(params: IDGParams, stg: Staged, oyx: torch.Tensor,

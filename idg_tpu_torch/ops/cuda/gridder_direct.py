@@ -1,0 +1,152 @@
+"""Gridder `cuda_v1` / `cuda_v2`: the direct full-phase kernel K8a
+(csrc/gridder_direct.cu) and its plain PyTorch version.
+
+The direct gridder computes the reference kernel's math
+(gridder_reference.cu:40-107) with no Taylor of the w term, so it is exact
+at any w:
+  phase[t,c,y,x] = po[y,x] − (u_t·l_x + v_t·m_y + w_t·n_yx)·k_c,
+  po = po_x[x] + po_y[y] + w_off·n[y,x]
+  pix[y,x,p] = Σ_{t,c} vis[t,c,p] · e^{i·phase}
+then Jones A1ᴴ·P·A2 and the taper. `cuda_v1` evaluates every phasor with an
+exact sincos. `cuda_v2` takes two per (t, pixel) and advances the phasor over
+the channels by repeated complex multiplies with e^{−i·pi·Δk}, Δk = k[1] − k[0],
+with no resync, as JAX's pallas_v2 does: it assumes uniform channel spacing.
+
+Each wrapper dispatches on the device of the staging it is given: a CPU
+staging runs the plain version, a CUDA staging launches the kernel (or
+raises). There is no fallback between the two.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...config import IDGParams
+from ..common import Staged
+from ..registry import register
+from . import build
+from .gridder import (
+    PLAIN_CHUNK,
+    _check_staged,
+    _station_jones,
+    check_staging,
+    full_fp32_matmuls,
+    jones_gridder,
+    ptr,
+)
+
+
+def expi(phase: torch.Tensor) -> torch.Tensor:
+    """e^{i·phase}, complex64."""
+    return torch.polar(torch.ones_like(phase), phase)
+
+
+def channel_step(k: torch.Tensor) -> torch.Tensor:
+    """Δk = k[1] − k[0] in f32 (0 for one channel), the recurrence's step."""
+    return k[1] - k[0] if k.shape[0] > 1 else torch.zeros((), dtype=k.dtype, device=k.device)
+
+
+def direct_geometry(stg: Staged, lo: int, hi: int):
+    """The phase index pi[s, t, y·N+x] = u·l_x + v·m_y + w·n_yx and the phase
+    offset po[s, 1, y·N+x] = po_x + po_y + w_off·n for subgrids [lo, hi), f32,
+    in the operation order of idg_tpu/ops/pallas/gridder.py:_gridder_direct."""
+    s = hi - lo
+    uvw = stg.uvw[lo:hi]
+    u, v, w = (uvw[:, :, i, None, None] for i in range(3))
+    pi = u * stg.l + v * stg.m[:, None] + w * stg.n
+    po = (stg.po_x[lo:hi, None, :] + stg.po_y[lo:hi, :, None]
+          + stg.w_off[lo:hi, None, None] * stg.n)
+    return pi.reshape(s, uvw.shape[1], -1), po.reshape(s, 1, -1)
+
+
+def gridder_direct_plain(params: IDGParams, stg: Staged, recurrence: bool):
+    """The kernel's function in complex64 torch ops, chunked over subgrids:
+    the phasor of every (visibility, pixel), materialized, contracted with
+    the visibilities over (t, c); then Jones A1ᴴ·P·A2 and the taper. With
+    `recurrence`, the phasors of channel c > 0 come from channel c − 1 by one
+    complex multiply, as JAX's _kernel_direct(recurrence=True) makes them.
+    Returns c64[S, P, N, N]."""
+    full_fp32_matmuls(stg.device)
+    S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
+    N, P = params.subgrid_size, params.nr_correlations
+    k = stg.wavenumbers
+    out = torch.empty((S, P, N, N), dtype=torch.complex64, device=stg.device)
+    for lo in range(0, S, PLAIN_CHUNK):
+        hi = min(lo + PLAIN_CHUNK, S)
+        pi, po = direct_geometry(stg, lo, hi)                       # [s,T,NN], [s,1,NN]
+        vis = stg.vis[lo:hi]                                        # [s,T,C,P]
+        if recurrence:
+            ph = expi(po - pi * k[0])
+            d = expi(-(pi * channel_step(k)))
+            pix = 0
+            for c in range(C):
+                pix = pix + torch.einsum("stp,stq->sqp", vis[:, :, c], ph)
+                if c + 1 < C:
+                    ph = ph * d
+        else:
+            ph = expi(po[:, :, None] - pi[:, :, None] * k[:, None])  # [s,T,C,NN]
+            pix = torch.einsum("stcp,stcq->sqp", vis, ph)
+        a1, a2 = _station_jones(stg, lo, hi)
+        pix = jones_gridder(pix.reshape(hi - lo, N, N, P), a1, a2) * stg.sph[None, :, :, None]
+        out[lo:hi] = pix.permute(0, 3, 1, 2)
+    return out
+
+
+def _gridder_direct(wrapper, params: IDGParams, stg: Staged, recurrence: bool):
+    """Dispatch of both wrappers: plain version on a CPU staging, K8a on a
+    CUDA staging, counted on `wrapper.launches`."""
+    name = wrapper.__name__
+    _check_staged(params, stg, None)
+    device = stg.device
+    if device.type == "cpu":
+        return gridder_direct_plain(params, stg, recurrence)
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
+    check_staging(params, stg, with_vis=True)
+    S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
+    N, P = params.subgrid_size, params.nr_correlations
+    out = torch.empty((S, P, N, N), dtype=torch.complex64, device=device)
+    if S == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(device):
+        rc = lib.idg_gridder_direct(
+            ptr(stg.uvw), ptr(stg.vis), ptr(stg.wavenumbers), ptr(stg.w_off),
+            ptr(stg.po_x), ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n),
+            ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
+            ptr(stg.station2), ptr(out),
+            S, T, C, N, stg.aterms.shape[1], int(recurrence),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    build.check(rc, name)
+    wrapper.launches += 1
+    return out
+
+
+@register(
+    "gridder", "cuda_v1",
+    "CUDA C++ FP32 direct gridder: full-phase sincos per (t,c,pixel), exact "
+    "at any w; counterpart of pallas_v1",
+    family="cuda",
+)
+def gridder_cuda_v1(params: IDGParams, stg: Staged):
+    """Direct gridder on a staging (plain version on the CPU, K8a on a card).
+    Returns c64[S, P, N, N]; `gridder_cuda_v1.launches` counts launches."""
+    return _gridder_direct(gridder_cuda_v1, params, stg, False)
+
+
+@register(
+    "gridder", "cuda_v2",
+    "CUDA C++ FP32 direct gridder with the channel recurrence: 2 sincos per "
+    "(t,pixel), one complex multiply per channel; counterpart of pallas_v2",
+    family="cuda", uniform_channels=True, fallback="cuda_v1",
+)
+def gridder_cuda_v2(params: IDGParams, stg: Staged):
+    """`gridder_cuda_v1` with the channel recurrence (uniform channel spacing
+    assumed; the API guard falls back to cuda_v1 otherwise).
+    `gridder_cuda_v2.launches` counts launches."""
+    return _gridder_direct(gridder_cuda_v2, params, stg, True)
+
+
+gridder_cuda_v1.launches = 0
+gridder_cuda_v2.launches = 0

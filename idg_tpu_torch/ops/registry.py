@@ -6,8 +6,11 @@ with a one-line description naming its JAX counterpart.
 
 Kernel contract (the 13-arg launch ABI of app/CUDA/util.cpp:233-237), on a
 staging from ``ops.common.stage`` that lives on the device the kernel runs on:
-  gridder:   fn(params: IDGParams, stg: Staged, w_rank) -> c64[S, P, N, N]
-  degridder: fn(params: IDGParams, stg: Staged, subgrids, w_rank) -> c64[S, T, C, P]
+  gridder:   fn(params: IDGParams, stg: Staged[, w_rank]) -> c64[S, P, N, N]
+  degridder: fn(params: IDGParams, stg: Staged, subgrids[, w_rank]) -> c64[S, T, C, P]
+w_rank is there only for the kernels with a Taylor of the w term: the direct
+full-phase kernels (exact in w) and the fixed-rank w-free rungs take none
+(ops/api.py:_rank_args).
 The JAX package stages inside jit; here staging is an explicit step, so the
 perf harness stages once and times only the kernel launches.
 """

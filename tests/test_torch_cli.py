@@ -4,6 +4,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import warnings
 
 import pytest
 
@@ -31,6 +32,10 @@ def test_list_names_the_kernels():
     out = _run("list")
     assert out.returncode == 0, out.stderr
     assert "cuda_v6" in out.stdout and "cuda_v7" in out.stdout
+    listed = {tuple(line.split()[:2]) for line in out.stdout.splitlines()}
+    for workload, versions in (("gridder", ("cuda_v1", "cuda_v2", "cuda_v6", "cuda_v7")),
+                               ("degridder", ("cuda_v1", "cuda_v2", "cuda_v7", "cuda_v8"))):
+        assert {(workload, v) for v in versions} <= listed
 
 
 def test_cuda_device_without_card_fails_clearly():
@@ -85,6 +90,48 @@ def test_grid_without_card_fails_clearly(direction):
     assert out.returncode == 2
     assert "no CUDA device is visible" in out.stderr
     assert "grid-add plan" not in out.stdout
+
+
+@pytest.mark.parametrize("command", [("vadd",), ("vadd", "--cuda"),
+                                     ("sweep", "--mode", "check", "--device", "cuda")])
+def test_vadd_and_sweep_without_card_fail_clearly(command):
+    """`vadd` times the card and a sweep on the card is no version's failure:
+    both exit 2 before any work."""
+    probe = _run(code="import torch; print(torch.cuda.is_available())")
+    if probe.stdout.strip() != "False":
+        pytest.skip("a CUDA device is visible here")
+    out = _run(*command)
+    assert out.returncode == 2
+    assert "no CUDA device is visible" in out.stderr
+    assert "===" not in out.stdout and "vadd" not in out.stdout
+
+
+@pytest.mark.parametrize("workload,version,w_obs,suffix,name,fell_back", [
+    ("gridder", "cuda_v1", False, "", "gridder_cuda_v1", False),
+    ("gridder", "cuda_v7", False, "_x", "gridder_cuda_v7_x", False),
+    ("gridder", "cuda_v7", True, "_x", "gridder_cuda_v6_fb_x_wobs", True),
+    ("degridder", "cuda_v8", True, "", "degridder_cuda_v7_fb_wobs", True),
+    ("degridder", "cuda_v2", True, "", "degridder_cuda_v2_wobs", False),
+])
+def test_perf_name_is_the_resolved_version(workload, version, w_obs, suffix, name, fell_back):
+    """Perf mode resolves once, on the host, before staging, and names the
+    CSV after the kernel it times: a fallback carries `_fb`, then the suffix
+    and `_wobs` (idg_tpu/cli.py:171-173)."""
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.config import IDGParams
+
+    params = IDGParams(grid_size=128, subgrid_size=16, nr_stations=3, nr_timeslots=2,
+                       nr_timesteps_subgrid=16, nr_channels=8)
+    with warnings.catch_warnings(record=True) as record:
+        warnings.simplefilter("always")
+        got_params, obs, sub, rversion, rank, got = cli._perf_problem(
+            workload, version, params=params, name_suffix=suffix, w_obs=w_obs)
+    assert got == name
+    assert (rversion != version) == fell_back
+    assert any("w-free" in str(w.message) for w in record) == fell_back
+    assert (rank is not None and rank > 1) == fell_back
+    assert (got_params.w_step != 0.0) == w_obs
+    assert (sub is not None) == (workload == "degridder")
 
 
 def test_grid_rejects_the_cpu_and_unknown_methods():

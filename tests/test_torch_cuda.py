@@ -1,13 +1,15 @@
 """The port's CUDA kernels on the card (marker `cuda`): each kernel against
 its plain PyTorch version and the f64 oracle at the 1e-5 gate (the grid
-extraction, a pure gather, exactly), and the launch counters. They skip on a
-host without a CUDA device.
+extraction, a pure gather, and vadd exactly), and the launch counters. They
+skip on a host without a CUDA device.
 
 This file imports no JAX, so it also runs on a GPU host that has none,
 without the suite's conftest (which sets JAX up):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from idg_tpu_torch.ops import cuda as kernels
 from idg_tpu_torch.ops import grid as tgrid
 from idg_tpu_torch.ops.api import _resolve
 from idg_tpu_torch.ops.common import stage
+from idg_tpu_torch.ops.vadd import make_vadd_inputs, vadd_plain
 from idg_tpu_torch.utils.compare import check_error
 
 GATE = 1e-5
@@ -230,3 +233,72 @@ def test_grid_add_launch_counters(card):
     assert kernels.grid_add_scatter_cuda.launches == 1
     assert kernels.grid_add_slots_cuda.launches == 1
     assert kernels.grid_add_cuda.launches == 0
+
+
+def _direct_problem(n, channels, w_value):
+    """w = 0 or a constant w that no Taylor rank reaches; 16 channels are two
+    of K9a's channel groups, 11 a full and a partial one, 7 a partial one."""
+    params = IDGParams(subgrid_size=n, nr_channels=channels, **SMALL)
+    obs, sub = make_observation(params, include_subgrids=True)
+    if w_value is not None:
+        uvw = np.array(obs.uvw, copy=True)
+        uvw[:, :, 2] = w_value
+        obs = dataclasses.replace(obs, uvw=uvw)
+    return params, obs, np.ascontiguousarray(sub)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,channels,w_value", [
+    (16, 16, None), (32, 11, None), (32, 7, None), (16, 16, 2.0e4), (32, 16, 2.0e4),
+])
+def test_direct_kernels_match_plain_and_oracle(card, n, channels, w_value):
+    """K8a and K9a, full phase (v1) and channel recurrence (v2)."""
+    params, obs, sub = _direct_problem(n, channels, w_value)
+    stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
+    sub_cpu, sub_gpu = torch.from_numpy(sub), torch.from_numpy(sub).to(card)
+    grid_oracle = gridder_reference(params, obs)
+    degrid_oracle = degridder_reference(params, obs, sub)
+    for recurrence, gridder, degridder in (
+            (False, kernels.gridder_cuda_v1, kernels.degridder_cuda_v1),
+            (True, kernels.gridder_cuda_v2, kernels.degridder_cuda_v2)):
+        got = gridder(params, stg_gpu)
+        torch.cuda.synchronize()
+        _gate(got, kernels.gridder_direct_plain(params, stg_cpu, recurrence))
+        _gate(got, grid_oracle)
+        got = degridder(params, stg_gpu, sub_gpu)
+        torch.cuda.synchronize()
+        _gate(got, kernels.degridder_direct_plain(params, stg_cpu, sub_cpu, recurrence))
+        _gate(got, degrid_oracle)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), ((1 << 20) + 3, 0), (4099, 1)])
+def test_vadd_kernel_matches_plain(card, n, offset):
+    """K10 on float4 quads with a scalar tail, and on misaligned inputs."""
+    x, y = make_vadd_inputs(n + offset, card)
+    x, y = x[offset:], y[offset:]
+    got = kernels.vadd_cuda(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, vadd_plain(x, y))
+
+
+@pytest.mark.cuda
+def test_direct_launch_counters(card):
+    params, obs, sub = _direct_problem(16, 16, None)
+    stg = stage(params, obs, card)
+    sub = torch.from_numpy(sub).to(card)
+    kernels.reset_launch_counts()
+    kernels.gridder_cuda_v1(params, stg)
+    kernels.gridder_cuda_v2(params, stg)
+    kernels.gridder_cuda_v2(params, stg)
+    kernels.degridder_cuda_v1(params, stg, sub)
+    kernels.degridder_cuda_v2(params, stg, sub)
+    kernels.gridder_direct_plain(params, stg, False)
+    kernels.vadd_cuda(*make_vadd_inputs(1000, card))
+    torch.cuda.synchronize()
+    assert kernels.gridder_cuda_v1.launches == 1
+    assert kernels.gridder_cuda_v2.launches == 2
+    assert kernels.degridder_cuda_v1.launches == 1
+    assert kernels.degridder_cuda_v2.launches == 1
+    assert kernels.vadd_cuda.launches == 1
+    assert kernels.gridder_cuda_v6.launches == 0

@@ -1,0 +1,268 @@
+"""The port's exact full-phase path (gridder and degridder `cuda_v1` /
+`cuda_v2`), the API guard's fallbacks, the w-free rungs (`cuda_v7` gridder,
+`cuda_v8` degridder), `sweep` and `vadd`, against the JAX package and the f64
+oracle on identical numpy inputs, at small sizes on the CPU.
+
+On a CPU staging the port's wrappers run their plain PyTorch versions; the
+JAX side runs `pallas_v1` / `pallas_v2` through `idg_tpu.ops.api` in Pallas
+interpret mode, as its own tests do. Gate: the reference's 1e-5
+normalized-RMS comparator for both comparisons, at w = 0, at
+make_w_observation's default w and at w = 2·10⁴ (no Taylor rank reaches
+that; the direct kernels are exact in w). Observed on the CPU: 5.3e-7 to
+1.3e-6 against the oracle, 3.5e-7 to 5.6e-7 against JAX. The CUDA kernels
+meet their plain versions on the card, in tests/test_torch_cuda.py and
+chip_smoke.py.
+"""
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import idg_tpu.data as jdata
+import idg_tpu.ops.api as japi
+import idg_tpu.ops.vadd as jvadd
+import idg_tpu_torch.config as tcfg
+import idg_tpu_torch.ops.api as tapi
+from idg_tpu_torch.models.reference import degridder_reference, gridder_reference
+from idg_tpu_torch.ops import cuda as kernels
+from idg_tpu_torch.ops import vadd as tvadd
+from idg_tpu_torch.ops.common import stage
+from idg_tpu_torch.ops.registry import get_kernel, list_kernels
+from idg_tpu_torch.types import from_numpy_observation
+from idg_tpu_torch.utils.compare import check_error
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+GATE = 1e-5
+STRESS_W = 2.0e4
+W_FREE = {"gridder": ("cuda_v7", "cuda_v6", "pallas_v7"),
+          "degridder": ("cuda_v8", "cuda_v7", "pallas_v8")}   # port rung, its fallback, JAX rung
+TAKES_RANK = {"gridder": "cuda_v6", "degridder": "cuda_v7"}
+
+
+def _port(params):
+    return tcfg.IDGParams(**dataclasses.asdict(params))
+
+
+def _stress_w(obs, w_value):
+    """Constant w with no compensating w plane (tests/test_guards.py:104-108)."""
+    uvw = np.array(obs.uvw, copy=True)
+    uvw[:, :, 2] = w_value
+    return dataclasses.replace(obs, uvw=uvw)
+
+
+def _non_uniform(obs):
+    k = np.array(obs.wavenumbers, copy=True)
+    k[-1] *= 1.05   # break uniform spacing in the last channel (tests/test_guards.py:37-40)
+    return dataclasses.replace(obs, wavenumbers=k)
+
+
+def _case(small_params, case):
+    if case == "w_default":
+        return jdata.make_w_observation(small_params, include_subgrids=True)
+    obs, sub = jdata.make_observation(small_params, include_subgrids=True)
+    return small_params, (_stress_w(obs, STRESS_W) if case == "w2e4" else obs), sub
+
+
+def _port_run(workload, version, params, obs, sub, w_rank=None):
+    tp, tobs = _port(params), from_numpy_observation(obs)
+    if workload == "gridder":
+        return tapi.run_gridder(tp, tobs, version, w_rank=w_rank, device="cpu")
+    return tapi.run_degridder(tp, tobs, sub, version, w_rank=w_rank, device="cpu")
+
+
+def _oracle(workload, params, obs, sub):
+    tp, tobs = _port(params), from_numpy_observation(obs)
+    if workload == "gridder":
+        return gridder_reference(tp, tobs)
+    return degridder_reference(tp, tobs, sub)
+
+
+def _error(got, want):
+    return check_error(got, want, verbose=False).mean_error
+
+
+@pytest.mark.parametrize("case", ["w0", "w_default", "w2e4"])
+@pytest.mark.parametrize("version", ["v1", "v2"])
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_direct_matches_jax_and_oracle(workload, version, case, small_params):
+    """cuda_v1/v2 against pallas_v1/v2 and the oracle; no guard engages on a
+    direct kernel, at any w."""
+    params, obs, sub = _case(small_params, case)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = _port_run(workload, "cuda_" + version, params, obs, sub)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    assert bool(torch.isfinite(torch.view_as_real(got)).all())
+    if workload == "gridder":
+        want = japi.run_gridder(params, obs, version="pallas_" + version)
+    else:
+        want = japi.run_degridder(params, obs, sub, version="pallas_" + version)
+    assert _error(got, _oracle(workload, params, obs, sub)) <= GATE
+    assert _error(got, want) <= GATE
+
+
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_recurrence_falls_back_on_non_uniform_channels(workload, small_params):
+    """As JAX's pallas_v2 falls back to pallas_v1, cuda_v2 warns and runs
+    cuda_v1, which meets the oracle; the raw recurrence misses the gate."""
+    obs, sub = jdata.make_observation(small_params, include_subgrids=True)
+    obs = _non_uniform(obs)
+    with pytest.warns(UserWarning, match="uniform channel spacing"):
+        assert japi._resolve(workload, "pallas_v2", small_params, obs) == ("pallas_v1", None)
+    tp, tobs = _port(small_params), from_numpy_observation(obs)
+    with pytest.warns(UserWarning, match="uniform channel spacing.*falling back to cuda_v1"):
+        assert tapi._resolve(workload, "cuda_v2", tp, tobs) == ("cuda_v1", None)
+    oracle = _oracle(workload, small_params, obs, sub)
+    with pytest.warns(UserWarning, match="uniform channel spacing"):
+        got = _port_run(workload, "cuda_v2", small_params, obs, sub)
+    assert _error(got, oracle) <= GATE
+    stg = stage(tp, tobs, "cpu")
+    if workload == "gridder":
+        raw = kernels.gridder_direct_plain(tp, stg, True)
+    else:
+        raw = kernels.degridder_direct_plain(tp, stg, torch.from_numpy(sub), True)
+    assert _error(raw, oracle) > GATE
+
+
+@pytest.mark.parametrize("override", [None, 2])
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_w_free_rungs_fall_back_on_nonzero_w(workload, override, small_params):
+    """At w = 600 rank 1 is short: both packages warn "w-free" (and that an
+    override is ignored) and fall back to a rank-taking rung at the same
+    rank; the port's result meets the oracle."""
+    rung, fallback, jax_rung = W_FREE[workload]
+    obs, sub = jdata.make_observation(small_params, include_subgrids=True)
+    obs = _stress_w(obs, 600.0)
+    with pytest.warns(UserWarning) as jax_record:
+        jax_version, jax_rank = japi._resolve(workload, jax_rung, small_params, obs, override)
+    assert jax_version == "pallas_v4"
+    with pytest.warns(UserWarning) as record:
+        got = _port_run(workload, rung, small_params, obs, sub, w_rank=override)
+    for rec, to in ((jax_record, "pallas_v4"), (record, fallback)):
+        messages = [str(w.message) for w in rec]
+        assert any("w-free" in m and f"falling back to {to}" in m for m in messages), messages
+        assert any("override is ignored" in m for m in messages) == (override is not None)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        resolved = tapi._resolve(workload, rung, _port(small_params),
+                                 from_numpy_observation(obs), override)
+    assert resolved == (fallback, jax_rank) and jax_rank > 1
+    assert _error(got, _oracle(workload, small_params, obs, sub)) <= GATE
+
+
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_w_free_rungs_at_w0_are_the_rank1_kernel(workload, small_params):
+    rung, fallback, _ = W_FREE[workload]
+    obs, sub = jdata.make_observation(small_params, include_subgrids=True)
+    tp, tobs = _port(small_params), from_numpy_observation(obs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert tapi._resolve(workload, rung, tp, tobs) == (rung, None)
+        got = _port_run(workload, rung, small_params, obs, sub)
+    want = _port_run(workload, fallback, small_params, obs, sub, w_rank=1)
+    assert torch.equal(got, want)
+    assert _error(got, _oracle(workload, small_params, obs, sub)) <= GATE
+
+
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_beyond_rank_6_raises_and_names_cuda_v1(workload, small_params):
+    """At w = 2·10⁴ the rank-taking and w-free rungs raise in both packages
+    (cuda_v1 runs there: test_direct_matches_jax_and_oracle)."""
+    obs, _ = jdata.make_observation(small_params)
+    obs = _stress_w(obs, STRESS_W)
+    tp, tobs = _port(small_params), from_numpy_observation(obs)
+    with pytest.raises(ValueError, match="direct full-phase"):
+        japi._resolve(workload, "pallas_v4", small_params, obs)
+    with pytest.raises(ValueError, match=r"rank-6 Taylor.*direct full-phase kernel \(cuda_v1\)"):
+        tapi._resolve(workload, TAKES_RANK[workload], tp, tobs)
+    with pytest.raises(ValueError, match="w-free"):
+        japi._resolve(workload, W_FREE[workload][2], small_params, obs)
+    with pytest.raises(ValueError, match=r"w-free.*direct full-phase kernel \(cuda_v1\)"):
+        tapi._resolve(workload, W_FREE[workload][0], tp, tobs)
+
+
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_direct_kernels_ignore_a_rank_override(workload, small_params):
+    obs, _ = jdata.make_observation(small_params)
+    with pytest.warns(UserWarning, match="override is ignored"):
+        assert japi._resolve(workload, "pallas_v1", small_params, obs, 3) == ("pallas_v1", None)
+    with pytest.warns(UserWarning, match="override is ignored"):
+        assert tapi._resolve(workload, "cuda_v1", _port(small_params),
+                             from_numpy_observation(obs), 3) == ("cuda_v1", None)
+
+
+@pytest.mark.parametrize("workload,version,uniform,fallback,fixed,takes_rank", [
+    ("gridder", "cuda_v1", False, None, None, False),
+    ("gridder", "cuda_v2", True, "cuda_v1", None, False),
+    ("gridder", "cuda_v6", False, None, None, True),
+    ("gridder", "cuda_v7", False, "cuda_v6", 1, False),
+    ("degridder", "cuda_v1", False, None, None, False),
+    ("degridder", "cuda_v2", True, "cuda_v1", None, False),
+    ("degridder", "cuda_v7", False, None, None, True),
+    ("degridder", "cuda_v8", False, "cuda_v7", 1, False),
+])
+def test_registry_entries(workload, version, uniform, fallback, fixed, takes_rank):
+    entry = get_kernel(workload, version)
+    assert (entry.family, entry.uniform_channels, entry.fallback, entry.fixed_w_rank) == (
+        "cuda", uniform, fallback, fixed)
+    assert tapi._accepts(workload, version, "w_rank") == takes_rank
+
+
+def test_cpu_tensors_leave_launch_counters_at_zero(small_params):
+    params = _port(small_params)
+    obs, sub = jdata.make_observation(small_params, include_subgrids=True)
+    stg = stage(params, from_numpy_observation(obs), "cpu")
+    kernels.reset_launch_counts()
+    for wrapper in (kernels.gridder_cuda_v1, kernels.gridder_cuda_v2):
+        wrapper(params, stg)
+    for wrapper in (kernels.degridder_cuda_v1, kernels.degridder_cuda_v2):
+        wrapper(params, stg, torch.from_numpy(np.ascontiguousarray(sub)))
+    kernels.vadd_cuda(*tvadd.make_vadd_inputs(8))
+    assert all(wrapper.launches == 0 for wrapper in kernels.KERNELS)
+
+
+@pytest.mark.parametrize("bad", ["subgrid_size", "subgrids_shape", "staging_dtype"])
+def test_direct_wrappers_reject_bad_input(bad, small_params):
+    params = _port(small_params)
+    obs, sub = jdata.make_observation(small_params, include_subgrids=True)
+    stg = stage(params, from_numpy_observation(obs), "cpu")
+    subt = torch.from_numpy(np.ascontiguousarray(sub))
+    with pytest.raises(ValueError):
+        if bad == "subgrid_size":
+            kernels.gridder_cuda_v1(dataclasses.replace(params, subgrid_size=24), stg)
+        elif bad == "subgrids_shape":
+            kernels.degridder_cuda_v2(params, stg, subt[:, :, :, :8])
+        else:
+            kernels.vadd_cuda(torch.zeros(8), torch.zeros(8, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("n", [4099, 1 << 16])
+def test_vadd_plain_matches_jax(n):
+    jx, jy = jvadd.make_vadd_inputs(n)
+    x, y = tvadd.make_vadd_inputs(n)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
+    want = np.asarray(jvadd.vadd(jnp.asarray(x.numpy()), jnp.asarray(y.numpy())))
+    np.testing.assert_array_equal(tvadd.vadd_plain(x, y).numpy(), want)
+    np.testing.assert_array_equal(kernels.vadd_cuda(x, y).numpy(), want)
+    assert tvadd.vadd_gbytes(n) == jvadd.vadd_gbytes(n)
+
+
+def test_sweep_check_on_cpu_passes_every_version():
+    out = subprocess.run(
+        [sys.executable, "-m", "idg_tpu_torch", "sweep", "--mode", "check", "--device", "cpu"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    for workload in ("gridder", "degridder"):
+        for version in (e.version for e in list_kernels(workload)):
+            assert f"=== {workload} {version} (check) ===" in out.stdout
+    assert out.stdout.count(">>> Result PASSED") == 8
