@@ -44,19 +44,32 @@ non-zero:
   9. direct   the exact full-phase rungs cuda_v1 / cuda_v2 of both workloads
               (K8a, K9a) against the f64 oracle at w = 0 and w = 2·10⁴ with
               no guard engaged, and the w-free rungs (gridder cuda_v7,
-              degridder cuda_v8) at w = 0 and through their fallback at
-              w != 0; K8a, K9a (v1, v2) and K10 (vadd) against their plain
-              versions (first 512 default subgrids; vadd exactly, at
-              n = 2^28), then timed both ways on the full problem (the plain
+              degridder cuda_v8) at w = 0 and through their fallback to
+              cuda_v4 at w != 0; K8a, K9a (v1, v2) and K10 (vadd) against
+              their plain versions (first 512 default subgrids; vadd
+              exactly, at n = 2^28), then timed both ways on the full problem (the plain
               direct versions one call); `sweep --mode check` over every
               version; both pipelines with --no-fuse --version cuda_v1
               (counted launches; refused without --no-fuse); then this
               slice's main path, perf mode for the four
               direct versions and `vadd` with and without --cuda, with
               counted launches, and the phase's seconds
-Then a JSON line of per-kernel results, the `nvidia-smi` line, and last the
-result line {"ok": true, "device": {...}}. Perf CSVs go to $OUTPUT_PATH, by
-default a fresh temporary directory.
+ 10. separable the separable rungs cuda_v3 / cuda_v4 / cuda_v5 of both
+              workloads (K8b, K8c, K9b, K9c; v4/v5 on the tensor cores):
+              ptxas registers and spills of every instance; each rung
+              against the f64 oracle at w = 0 and at rank 4 (w_scale 1000),
+              and cuda_v5 on non-uniform wavenumbers resolving to cuda_v4,
+              with counted launches; each kernel against its plain version
+              on the first 512 default subgrids (1e-5 gate), then timed both
+              ways on the full problem (the plain version one call); then
+              this slice's main path, perf mode for the six versions with
+              counted launches, and the phase's seconds
+Then a JSON line of per-kernel results (each with its bound: the larger of
+its bytes over 3.35 TB/s and its operations over the FP32 or bf16 peak, and
+the time of one PyTorch call computing the same function where there is
+one), the `nvidia-smi` line, and last the result line
+{"ok": true, "device": {...}}. Perf CSVs go to $OUTPUT_PATH, by default a
+fresh temporary directory.
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import re
 import sys
 import tempfile
 import time
@@ -78,6 +92,101 @@ GRID_16384 = dict(grid_size=16384)                    # config 5's grid on one c
 STRESS_W = 2.0e4     # a w no Taylor rank reaches (tests/test_guards.py:171-185)
 DIRECT = (("gridder", "cuda_v1"), ("gridder", "cuda_v2"),
           ("degridder", "cuda_v1"), ("degridder", "cuda_v2"))
+SEPARABLE = tuple((w, f"cuda_v{i}") for w in ("gridder", "degridder") for i in (3, 4, 5))
+# published H100 SXM peaks (NVIDIA's data sheet): the bound of a kernel is
+# the larger of its bytes over the memory rate and its operations over the
+# rate of the unit that does them
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of the tensors given, or of every tensor field of a staging."""
+    import dataclasses
+
+    import torch
+
+    total = 0
+    for obj in objs:
+        if dataclasses.is_dataclass(obj):
+            total += tensor_bytes(*(getattr(obj, f.name) for f in dataclasses.fields(obj)))
+        elif isinstance(obj, torch.Tensor):
+            total += obj.nbytes
+    return total
+
+
+def kernel_row(name, source, replaces, max_abs, ms, plain_ms, nbytes, flops,
+               peak=FP32_FLOP_PER_S, library_ms=None) -> dict:
+    """One entry of the JSON `kernels` line. `nbytes` reads each input once
+    and writes each output once; `flops` are the operations of this call,
+    done at `peak` (FP32 on the CUDA cores, bf16 on the tensor cores)."""
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, flops_ms),
+                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
+                library_ms=library_ms)
+
+
+def model_flops(params, fused: bool = False) -> float:
+    """The reference's operation model of one gridder/degridder pass
+    (utils/costs.py), with the grid stage's (i)DFT for a fused form."""
+    from idg_tpu_torch.utils.costs import grid_costs, workload_costs
+
+    return 1e9 * (workload_costs(params)[0] + (grid_costs(params)[0] if fused else 0.0))
+
+
+def window_index(cy, cx, oy, ox, n: int, g: int, p: int):
+    """i64[S·P·N·N]: the flat [P·G·G] grid index of each pixel of the
+    block-rolled pieces of the subgrids at corners (cy, cx) rolled by
+    (oy, ox): piece row y sits at grid row (cy + (y − oy) mod N) mod G."""
+    import torch
+
+    i = torch.arange(n, device=cy.device)
+    rows = (cy[:, None].long() + (i[None, :] - oy[:, None].long()) % n) % g
+    cols = (cx[:, None].long() + (i[None, :] - ox[:, None].long()) % n) % g
+    pix = rows[:, :, None] * g + cols[:, None, :]
+    pols = torch.arange(p, device=cy.device)[None, :, None, None] * g * g
+    return (pols + pix[:, None]).reshape(-1)
+
+
+def index_add_grid(pieces, idx, size: int):
+    """The library yardstick of a grid-add: one index_add_ of every piece
+    pixel into a fresh flat grid of `size` complex values."""
+    import torch
+
+    grid = torch.zeros(size, dtype=torch.complex64, device=pieces.device)
+    torch.view_as_real(grid).index_add_(0, idx, torch.view_as_real(pieces.reshape(-1)))
+    return grid
+
+
+def run_blocks(starts, lens, nrows: int):
+    """i64[nrows]: the block each piece row is added into by a range plan's
+    runs, and ncols for the rows in no run (summed into a spare block)."""
+    ncols = starts.shape[1]
+    out = np.full(nrows, ncols, np.int64)
+    for q in range(starts.shape[0]):
+        ln = lens[q].astype(np.int64)
+        if not ln.sum():
+            continue
+        first = np.cumsum(ln) - ln
+        out[np.repeat(starts[q].astype(np.int64) - first, ln) + np.arange(ln.sum())] = \
+            np.repeat(np.arange(ncols), ln)
+    return out
+
+
+def index_add_blocks(pieces, blocks, nblocks: int):
+    """The library yardstick of a block-aligned grid-add: one index_add_ of
+    each piece into its block, c64[nblocks + 1, P·N·N] (the grid's blocks
+    before the layout permute; the spare block takes rows in no block)."""
+    import torch
+
+    out = torch.zeros((nblocks + 1, pieces[0].numel()), dtype=torch.complex64,
+                      device=pieces.device)
+    torch.view_as_real(out).index_add_(0, blocks,
+                                       torch.view_as_real(pieces.reshape(pieces.shape[0], -1)))
+    return out
 
 
 def launch_counts() -> dict:
@@ -126,6 +235,31 @@ def compare(name: str, got, want, exact: bool = False, tag: str = "grid") -> flo
     return max_abs
 
 
+def kernels_vs_plain(rows, tag, cases, timing, plain_timing, flops, peak=FP32_FLOP_PER_S):
+    """Each case (name, kernel, plain, small_args, full_args, source,
+    replaces): the kernel against its plain version on the small arguments,
+    finite on the full ones, both timed there; appends its JSON entry, with
+    `flops` operations done at `peak` (no library call computes these
+    functions)."""
+    import torch
+
+    for name, kernel, plain, small_args, full_args, source, replaces in cases:
+        max_abs = compare(f"{name} vs plain on {COMPARE_SUBGRIDS} subgrids", kernel(*small_args),
+                          plain(*small_args), tag=tag)
+        full = kernel(*full_args)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(torch.view_as_real(full)).all()):
+            raise RuntimeError(f"{name}: non-finite output on the full problem")
+        nbytes = tensor_bytes(*full_args) + full.nbytes
+        del full
+        k_ms = device_ms(kernel, *full_args, harness=timing)
+        p_ms = device_ms(plain, *full_args, harness=plain_timing)
+        phase(tag, f"{name} full problem ({full_args[1].nr_subgrids} subgrids): kernel "
+                   f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        rows.append(kernel_row(name, source, replaces, max_abs, k_ms, p_ms, nbytes, flops,
+                               peak(name) if callable(peak) else peak))
+
+
 def grid_stage_phase(rows, timing, plain_timing):
     """Phase 6: each grid-stage kernel against its plain version on the
     card, then timed both ways on the full block-sorted default problem;
@@ -140,6 +274,7 @@ def grid_stage_phase(rows, timing, plain_timing):
     from idg_tpu_torch.ops.api import (gridded_pipeline_parts,
                                        staged_degridder_pieces_chunk_consumers)
     from idg_tpu_torch.ops.common import slice_staged, stage
+    from idg_tpu_torch.ops.cuda.grid import _home_corners
 
     # the fused pipelines against the f64 oracle, 40 subgrids at N = 32
     params = IDGParams(grid_size=256, nr_stations=5, nr_timeslots=4, nr_timesteps_subgrid=32,
@@ -200,6 +335,18 @@ def grid_stage_phase(rows, timing, plain_timing):
          (params, small, xpieces[:k], 2, oyx[:k]), (params, stg, xpieces, 2, oyx),
          "idg_tpu_torch/csrc/degridder.cu", "idg_tpu/ops/pallas/degridder.py:1022", False),
     )
+    # operations and the library yardstick per kernel: the grid-add as one
+    # index_add_ of every piece pixel, the extraction as one gather
+    p = params.nr_correlations
+    hcy, hcx = _home_corners(plan, oyx)
+    add_idx = window_index(hcy, hcx, oyx[:, 0], oyx[:, 1], n, g, p)
+    ecy, ecx = cy.long() % g, cx.long() % g
+    extract_idx = window_index(ecy, ecx, ecy % n, ecx % n, n, g, p)
+    flops = {"gridder_cuda_v6_pieces": model_flops(params, True),
+             "grid_add_cuda": 2.0 * pieces.numel(), "grid_extract_cuda": 0.0,
+             "degridder_cuda_v7_fused": model_flops(params, True)}
+    library = {"grid_add_cuda": lambda: index_add_grid(pieces, add_idx, p * g * g),
+               "grid_extract_cuda": lambda: torch.view_as_real(grid).reshape(-1, 2)[extract_idx]}
     times = {}
     for name, kernel, plain, small_args, full_args, source, replaces, exact in cases:
         max_abs = compare(f"{name} vs plain on {k} subgrids", kernel(*small_args),
@@ -208,14 +355,18 @@ def grid_stage_phase(rows, timing, plain_timing):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(torch.view_as_real(full)).all()):
             raise RuntimeError(f"{name}: non-finite output on the full problem")
+        nbytes = tensor_bytes(*full_args) + full.nbytes
         del full
         k_ms = device_ms(kernel, *full_args, harness=timing)
         p_ms = device_ms(plain, *full_args, harness=plain_timing)
+        lib_ms = device_ms(library[name], harness=timing) if name in library else None
         times[name] = k_ms
         phase("grid", f"{name} full problem ({params.nr_subgrids} subgrids): kernel "
-                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=0, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms))
+                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms"
+                      + (f", library {lib_ms:.3f} ms" if lib_ms is not None else ""))
+        rows.append(kernel_row(name, source, replaces, max_abs, k_ms, p_ms, nbytes,
+                               flops[name], library_ms=lib_ms))
+    del add_idx, extract_idx
 
     # K3 runs inside the fused kernels: check it on the full problem against
     # the plain (i)DFT + roll of the same subgrids, and print what the fused
@@ -317,13 +468,29 @@ def grid_add_phase(rows, timing, plain_timing):
         oyx = torch.as_tensor(tgrid.roll_offsets(cx, cy, g, n), device="cuda")
         return params, cx, cy, tiles, oyx
 
-    def case(name, kernel, plain, args, source, replaces, detail=""):
-        max_abs = compare(f"{name} vs plain{detail}", kernel(*args), plain(*args), tag="grid-add")
+    def case(name, kernel, plain, args, source, replaces, library, detail=""):
+        """Kernel against plain, both timed, and the library yardstick: one
+        index_add_ of each piece into its block (`library`, no arguments)."""
+        got = kernel(*args)
+        max_abs = compare(f"{name} vs plain{detail}", got, plain(*args), tag="grid-add")
+        nbytes = tensor_bytes(args[0]) + got.nbytes
+        del got
         k_ms = device_ms(kernel, *args, harness=timing)
         p_ms = device_ms(plain, *args, harness=plain_timing)
-        phase("grid-add", f"{name}{detail}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=0, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms))
+        lib_ms = device_ms(library, harness=timing)
+        phase("grid-add", f"{name}{detail}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                          f"library {lib_ms:.3f} ms")
+        rows.append(kernel_row(name, source, replaces, max_abs, k_ms, p_ms, nbytes,
+                               2.0 * args[0].numel(), library_ms=lib_ms))
+
+    def slot_library(quad, splan):
+        blocks = torch.as_tensor(splan.piece_blocks.astype(np.int64), device="cuda")
+        return lambda: index_add_blocks(quad, blocks, splan.nby * splan.nbx)
+
+    def run_library(masked, plan):
+        blocks = torch.as_tensor(run_blocks(plan.starts, plan.lens, masked.shape[0]),
+                                 device="cuda")
+        return lambda: index_add_blocks(masked, blocks, plan.nb)
 
     # K11a on the default problem's quadrant pieces (the --method pallas path)
     params, cx, cy, tiles, oyx = problem()
@@ -332,7 +499,7 @@ def grid_add_phase(rows, timing, plain_timing):
     quad = tgrid._quadrant_pieces(tiles, cy, cx, g)
     case("grid_add_scatter_cuda", kernels.grid_add_scatter_cuda, kernels.grid_add_scatter_plain,
          (quad, splan), "idg_tpu_torch/csrc/grid_add_slots.cu", "idg_tpu/ops/grid.py:1819",
-         f" ({g}², {quad.shape[0]} pieces, atomics)")
+         slot_library(quad, splan), f" ({g}², {quad.shape[0]} pieces, atomics)")
     del quad, tiles
     torch.cuda.empty_cache()
 
@@ -346,7 +513,7 @@ def grid_add_phase(rows, timing, plain_timing):
     masked = tgrid._mask_pieces(tiles, oyx[:, 0], oyx[:, 1])
     case("grid_add_pieces_cuda", kernels.grid_add_pieces_cuda, kernels.grid_add_pieces_plain,
          (masked, plan), "idg_tpu_torch/csrc/grid_add_pieces.cu", "idg_tpu/ops/grid.py:616",
-         f" (LOFAR-4096 masked pieces, {masked.shape[0]})")
+         run_library(masked, plan), f" (LOFAR-4096 masked pieces, {masked.shape[0]})")
     del masked
     cxd, cyd = (torch.as_tensor(np.asarray(c, np.int32), device="cuda") for c in (cx, cy))
     k4_ms = device_ms(kernels.grid_add_cuda, tiles, oyx, plan, g, harness=timing)
@@ -358,7 +525,7 @@ def grid_add_phase(rows, timing, plain_timing):
     quad = tgrid._quadrant_pieces(tiles, cy, cx, g)
     case("grid_add_slots_cuda", kernels.grid_add_slots_cuda, kernels.grid_add_slots_plain,
          (quad, splan), "idg_tpu_torch/csrc/grid_add_slots.cu", "idg_tpu/ops/grid.py:2028",
-         f" (LOFAR-4096, cap {splan.cap})")
+         slot_library(quad, splan), f" (LOFAR-4096, cap {splan.cap})")
     del quad, tiles
     torch.cuda.empty_cache()
 
@@ -389,12 +556,14 @@ def grid_add_phase(rows, timing, plain_timing):
 
     k_ms = device_ms(all_stripes(kernels.grid_add_merged_cuda), masked, harness=timing)
     p_ms = device_ms(all_stripes(kernels.grid_add_merged_plain), masked, harness=plain_timing)
+    lib_ms = device_ms(run_library(masked, plan), harness=timing)
     phase("grid-add", f"grid_add_merged_cuda, all {plan.nb // stripe} stripes: kernel "
-                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (zero-filled bands included)")
-    rows.append(dict(name="grid_add_merged_cuda", route="cuda",
-                     source="idg_tpu_torch/csrc/grid_add_merged.cu",
-                     replaces="idg_tpu/ops/grid.py:788", launches=0, max_abs_err=max_abs,
-                     ms=k_ms, plain_ms=p_ms))
+                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (zero-filled bands included), "
+                      f"library {lib_ms:.3f} ms")
+    rows.append(kernel_row("grid_add_merged_cuda", "idg_tpu_torch/csrc/grid_add_merged.cu",
+                           "idg_tpu/ops/grid.py:788", max_abs, k_ms, p_ms,
+                           masked.nbytes + params.nr_correlations * g * g * 8,
+                           2.0 * masked.numel(), library_ms=lib_ms))
     del masked
     torch.cuda.empty_cache()
 
@@ -492,8 +661,8 @@ def direct_phase(rows, timing):
     for workload, version in DIRECT:
         for label, obs in (("w=0", obs0), (f"w={STRESS_W:g}", obs_stress)):
             oracle_check(label, workload, version, params, obs, version, None)
-    for workload, rung, fallback in (("gridder", "cuda_v7", "cuda_v6"),
-                                     ("degridder", "cuda_v8", "cuda_v7")):
+    for workload, rung, fallback in (("gridder", "cuda_v7", "cuda_v4"),
+                                     ("degridder", "cuda_v8", "cuda_v4")):
         oracle_check("w=0", workload, rung, params, obs0, rung, None)
         oracle_check("w!=0 (w_scale 1000)", workload, rung, params_w, obs_w, fallback, "w-free")
 
@@ -519,20 +688,8 @@ def direct_phase(rows, timing):
              (params, small, sub_t[:k]), (params, stg, sub_t),
              "idg_tpu_torch/csrc/degridder_direct.cu", "idg_tpu/ops/pallas/degridder.py:127"),
         ]
-    for name, kernel, plain, small_args, full_args, source, replaces in cases:
-        max_abs = compare(f"{name} vs plain on {k} subgrids", kernel(*small_args),
-                          plain(*small_args), tag="direct")
-        full = kernel(*full_args)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(torch.view_as_real(full)).all()):
-            raise RuntimeError(f"{name}: non-finite output on the full problem")
-        del full
-        k_ms = device_ms(kernel, *full_args, harness=timing)
-        p_ms = device_ms(plain, *full_args, harness=plain_once)
-        phase("direct", f"{name} full problem ({params.nr_subgrids} subgrids): kernel "
-                        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms (one timed call)")
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=0, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms))
+    # the plain direct versions: one timed call
+    kernels_vs_plain(rows, "direct", cases, timing, plain_once, model_flops(params))
     del stg, small, sub_t
     torch.cuda.empty_cache()
 
@@ -542,11 +699,12 @@ def direct_phase(rows, timing):
                       tvadd.vadd_plain(x, y), exact=True, tag="direct")
     k_ms = device_ms(kernels.vadd_cuda, x, y, harness=timing)
     p_ms = device_ms(tvadd.vadd_plain, x, y, harness=timing)
+    lib_ms = device_ms(torch.add, x, y, harness=timing)
     phase("direct", f"vadd_cuda (n = {n}, {tvadd.vadd_gbytes(n):.3f} GB): kernel {k_ms:.3f} ms "
-                    f"({tvadd.vadd_gbytes(n) / k_ms:.3f} TB/s), plain {p_ms:.3f} ms")
-    rows.append(dict(name="vadd_cuda", route="cuda", source="idg_tpu_torch/csrc/vadd.cu",
-                     replaces="idg_tpu/ops/vadd.py:22", launches=0, max_abs_err=max_abs,
-                     ms=k_ms, plain_ms=p_ms))
+                    f"({tvadd.vadd_gbytes(n) / k_ms:.3f} TB/s), plain {p_ms:.3f} ms, "
+                    f"library (torch.add) {lib_ms:.3f} ms")
+    rows.append(kernel_row("vadd_cuda", "idg_tpu_torch/csrc/vadd.cu", "idg_tpu/ops/vadd.py:22",
+                           max_abs, k_ms, p_ms, 3 * x.nbytes, float(n), library_ms=lib_ms))
     del x, y
     torch.cuda.empty_cache()
 
@@ -603,6 +761,136 @@ def direct_phase(rows, timing):
         if counts[name] == 0:
             raise RuntimeError(f"{name} was never launched on the main path")
     phase("direct", f"phase 9: {time.perf_counter() - t_start:.1f} s")
+
+
+def separable_phase(rows, timing):
+    """Phase 10: the separable rungs cuda_v3/v4/v5 of both workloads (K8b,
+    K8c, K9b, K9c): against the f64 oracle at w = 0 and at rank 4, cuda_v5's
+    fallback to cuda_v4 on non-uniform channels, each kernel against its
+    plain version and timed, then perf mode for the six versions with
+    counted launches."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.bench import V100_DEGRIDDER_REFERENCE_MVIS_S, V100_GRIDDER_REFERENCE_MVIS_S
+    from idg_tpu_torch.config import HarnessConfig, IDGParams
+    from idg_tpu_torch.data import (initialize_subgrids, make_observation,
+                                    make_perf_observation, make_w_observation)
+    from idg_tpu_torch.models.reference import degridder_reference, gridder_reference
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops.api import _resolve, run_degridder, run_gridder
+    from idg_tpu_torch.ops.common import slice_staged, stage
+    from idg_tpu_torch.ops.cuda import build
+    from idg_tpu_torch.ops.cuda.gridder_separable import plain_precisions
+    from idg_tpu_torch.utils.compare import check_error
+    from idg_tpu_torch.utils.costs import workload_costs
+
+    t_start = time.perf_counter()
+    lines = build.build_log.splitlines()
+    for i, line in enumerate(lines):
+        kernel = re.search(r"(degridder|gridder)_separable_kernelILi(\d+)ELb(\d)ELb(\d)", line)
+        if "Compiling entry" in line and kernel:
+            workload, n, bf16, recur = kernel.groups()
+            rung = "cuda_v5" if recur == "1" else "cuda_v4" if bf16 == "1" else "cuda_v3"
+            phase("separable", f"ptxas {workload} {rung} N = {n}: "
+                               + " | ".join(x.strip() for x in lines[i + 2:i + 4]))
+
+    # against the f64 oracle on the correctness problem: w = 0, rank 4
+    # (w_scale 1000), and cuda_v5 on non-uniform wavenumbers, which must
+    # resolve to cuda_v4 and launch its kernel
+    params = IDGParams.correctness_defaults()
+    obs0, _ = make_observation(params)
+    sub = initialize_subgrids(params.nr_subgrids, params.nr_correlations, params.subgrid_size)
+    params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+    k = np.array(obs0.wavenumbers, copy=True)
+    k[-1] *= 1.05
+    obs_nu = dataclasses.replace(obs0, wavenumbers=k)
+    checks = [(w, v, label, p, o, v) for w, v in SEPARABLE
+              for label, p, o in (("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w))]
+    checks += [(w, "cuda_v5", "non-uniform channels", params, obs_nu, "cuda_v4")
+               for w in ("gridder", "degridder")]
+    for workload, version, label, p, obs, resolves_to in checks:
+        kernels.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as record:
+            warnings.simplefilter("always")
+            resolved = _resolve(workload, version, p, obs)
+            if workload == "gridder":
+                got, want = run_gridder(p, obs, version, device="cuda"), gridder_reference(p, obs)
+            else:
+                got = run_degridder(p, obs, sub, version, device="cuda")
+                want = degridder_reference(p, obs, sub)
+        torch.cuda.synchronize()
+        launched = {name: n for name, n in launch_counts().items() if n}
+        res = check_error(got, want, verbose=False)
+        ok = (res.passed and resolved[0] == resolves_to
+              and launched == {f"{workload}_{resolves_to}": 1}
+              and (resolved[1] or 2) >= (4 if "rank 4" in label else 2)
+              and any("uniform channel" in str(w.message) for w in record) == (
+                  resolves_to != version))
+        phase("separable", f"{workload} {version} {label}: resolved {resolved}, mean_error "
+                           f"{res.mean_error:.3e} (gate {GATE:g}), launches {launched} "
+                           f"{'PASSED' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"{workload} {version} {label} failed")
+
+    # each kernel against its plain version on the first 512 default
+    # subgrids, then both timed on the full problem (the plain version one
+    # call); v4/v5 do their products on the tensor cores
+    params = IDGParams.from_env()
+    stg = stage(params, make_perf_observation(params), "cuda")
+    sub_t = torch.as_tensor(np.ascontiguousarray(initialize_subgrids(
+        params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
+    small = slice_staged(stg, 0, COMPARE_SUBGRIDS)
+    plain_once = HarnessConfig(nr_warm_up_runs=0, nr_iterations=1, nr_windows=1)
+    sources = {"gridder": ("idg_tpu_torch/csrc/gridder_separable.cu",
+                           {"cuda_v5": "idg_tpu/ops/pallas/gridder.py:708"},
+                           "idg_tpu/ops/pallas/gridder.py:525"),
+               "degridder": ("idg_tpu_torch/csrc/degridder_separable.cu",
+                             {"cuda_v5": "idg_tpu/ops/pallas/degridder.py:559"},
+                             "idg_tpu/ops/pallas/degridder.py:307")}
+    cases = []
+    for workload, version in SEPARABLE:
+        kernel = getattr(kernels, f"{workload}_{version}")
+        source, special, replaces = sources[workload]
+        rec = version == "cuda_v5"
+        prec = plain_precisions(version, 2)
+        if workload == "gridder":
+            def plain(p, s, r, prec=prec, rec=rec):
+                return kernels.gridder_separable_plain(p, s, r, prec, rec)
+            small_args, full_args = (params, small, 2), (params, stg, 2)
+        else:
+            def plain(p, s, sb, r, prec=prec, rec=rec):
+                return kernels.degridder_separable_plain(p, s, sb, r, prec, rec)
+            small_args = (params, small, sub_t[:COMPARE_SUBGRIDS], 2)
+            full_args = (params, stg, sub_t, 2)
+        cases.append((f"{workload}_{version}", kernel, plain, small_args, full_args, source,
+                      special.get(version, replaces)))
+    kernels_vs_plain(rows, "separable", cases, timing, plain_once, model_flops(params),
+                     peak=lambda name: FP32_FLOP_PER_S if name.endswith("v3") else BF16_FLOP_PER_S)
+    del stg, small, sub_t
+    torch.cuda.empty_cache()
+
+    # the main path of this slice: perf mode for the six versions through
+    # the CLI, counts set to 0 just before and read just after
+    _, _, mvis = workload_costs(params)
+    kernels.reset_launch_counts()
+    seconds = {f"{w}_{v}": cli._perf_one(w, v) for w, v in SEPARABLE}
+    counts = launch_counts()
+    by_name = {row["name"]: row for row in rows}
+    anchors = {"gridder": V100_GRIDDER_REFERENCE_MVIS_S,
+               "degridder": V100_DEGRIDDER_REFERENCE_MVIS_S}
+    for name, s in seconds.items():
+        anchor = anchors[name.split("_")[0]]
+        phase("perf", f"{name}: {s * 1e3:.3f} ms/pass, {mvis / s:.2f} MVis/s "
+                      f"({mvis / s / anchor:.1f}x the V100 naive {anchor}), "
+                      f"launches {counts[name]}")
+        by_name[name]["launches"] = counts[name]
+        if counts[name] == 0:
+            raise RuntimeError(f"{name} was never launched on the main path")
+    phase("separable", f"phase 10: {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -696,29 +984,7 @@ def main() -> int:
          "idg_tpu_torch/csrc/degridder.cu", "idg_tpu/ops/pallas/degridder.py:901"),
     )
     rows = []
-    for name, kernel, plain, small_args, full_args, source, replaces in cases:
-        got = kernel(*small_args)
-        want = plain(*small_args)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(torch.view_as_real(got)).all()):
-            raise RuntimeError(f"{name}: non-finite kernel output")
-        res = check_error(got, want, verbose=False)
-        max_abs = float((got - want).abs().max())
-        phase("compare", f"{name} vs plain on {COMPARE_SUBGRIDS} subgrids: mean_error "
-                         f"{res.mean_error:.3e} (gate {GATE:g}), max_abs_err {max_abs:.3e}")
-        if not res.passed:
-            raise RuntimeError(f"{name} disagrees with its plain version")
-        full = kernel(*full_args)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(torch.view_as_real(full)).all()):
-            raise RuntimeError(f"{name}: non-finite output on the full problem")
-        del full
-        k_ms = device_ms(kernel, *full_args, harness=timing)
-        p_ms = device_ms(plain, *full_args, harness=plain_timing)
-        phase("compare", f"{name} full problem ({params.nr_subgrids} subgrids): kernel "
-                         f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         launches=0, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms))
+    kernels_vs_plain(rows, "compare", cases, timing, plain_timing, model_flops(params))
     del stg, small, sub_t
     torch.cuda.empty_cache()
 
@@ -752,6 +1018,9 @@ def main() -> int:
 
     # 9. the direct rungs, the w-free rungs, sweep and vadd
     direct_phase(rows, timing)
+
+    # 10. the separable rungs: K8b, K8c, K9b, K9c
+    separable_phase(rows, timing)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -8,6 +8,7 @@ mode and device, and honors the same env vars.
   python -m idg_tpu_torch run --workload gridder --version cuda_v6 --mode check
   python -m idg_tpu_torch run --workload degridder --version cuda_v7 --mode perf
   python -m idg_tpu_torch run --workload gridder --version cuda_v1 --w-obs
+  python -m idg_tpu_torch run --workload degridder --version cuda_v4 --mode check
   python -m idg_tpu_torch sweep --mode check --device cpu
   python -m idg_tpu_torch vadd --cuda
   python -m idg_tpu_torch pipeline --direction grid
@@ -504,9 +505,13 @@ def cmd_list(args) -> int:
 
 
 def cmd_info(args) -> int:
+    from .ops.registry import WORKLOADS, list_kernels
     from .utils.printing import print_device_info
 
     print_device_info()
+    for workload in WORKLOADS:
+        versions = ", ".join(e.version for e in list_kernels(workload))
+        print(f"{workload + ' versions':<30s}== {versions}")
     return 0
 
 

@@ -132,12 +132,11 @@ degridder_cuda_v7.fused_launches = 0
     "degridder", "cuda_v8",
     "w-free specialization: cuda_v7 at rank 1 (drops the w-term correction; "
     "exact for w==0 data); counterpart of pallas_v8",
-    family="cuda", fallback="cuda_v7", fixed_w_rank=1,
+    family="cuda", fallback="cuda_v4", fixed_w_rank=1,
 )
 def degridder_cuda_v8(params: IDGParams, stg: Staged, subgrids: torch.Tensor):
     """K2 at Taylor rank 1, non-fused; exact for w ≡ 0 observations. On
-    w ≠ 0 data the API guard falls back to cuda_v7 at the rank the
-    observation needs (JAX's pallas_v8 names pallas_v4; the port the nearest
-    ported rung that takes a rank and assumes nothing about the channel
-    spacing). Its launches count on `degridder_cuda_v7`."""
+    w ≠ 0 data the API guard falls back to cuda_v4 at the rank the
+    observation needs, as JAX's pallas_v8 falls back to pallas_v4. Its
+    launches count on `degridder_cuda_v7`."""
     return degridder_cuda_v7(params, stg, subgrids, 1)

@@ -187,14 +187,13 @@ gridder_cuda_v6.launches = 0
     "gridder", "cuda_v7",
     "w-free specialization: cuda_v6 at rank 1 (drops the w-term correction; "
     "exact for w==0 data); counterpart of pallas_v7",
-    family="cuda", fallback="cuda_v6", fixed_w_rank=1,
+    family="cuda", fallback="cuda_v4", fixed_w_rank=1,
 )
 def gridder_cuda_v7(params: IDGParams, stg: Staged):
     """K1 at Taylor rank 1, non-fused; exact for w ≡ 0 observations (every
-    in-tree generator). On w ≠ 0 data the API guard falls back to cuda_v6 at
-    the rank the observation needs: JAX's pallas_v7 names pallas_v4, the port
-    the nearest ported rung that takes a rank and assumes nothing about the
-    channel spacing. K1 has no channel recurrence, so the rung is not marked
+    in-tree generator). On w ≠ 0 data the API guard falls back to cuda_v4 at
+    the rank the observation needs, as JAX's pallas_v7 falls back to
+    pallas_v4. K1 has no channel recurrence, so the rung is not marked
     uniform_channels. Its launches count on `gridder_cuda_v6`."""
     return gridder_cuda_v6(params, stg, 1)
 

@@ -1,0 +1,61 @@
+"""Matrix-unit precision policies of the separable rungs and the split
+product they name, in torch ops.
+
+The counterpart of ``idg_tpu/ops/pallas/gridder.py:_dot_mixed`` /
+``gridder_precisions`` and ``idg_tpu/ops/pallas/common.py:rank_precisions``.
+A mode names how a float32 product is taken:
+
+  "highest"  float32 throughout
+  "3x"       bf16_3x: hi = bf16(x), lo = bf16(x − hi), both rounded to nearest
+             even; lh·rh + (lh·rl + ll·rh), each product exact in float32
+  "default"  lh·rh, one bf16 pass (what the TPU runs for DEFAULT precision;
+             JAX on the CPU takes float32 there instead)
+
+The tensor-core kernels (csrc/gridder_separable.cu, degridder_separable.cu)
+take the same split with ``__float2bfloat16_rn`` and run each pass as one
+bf16 ``mma.sync`` into float32 accumulators. JAX's "3x2"/"3x2k" are
+tile-filling arrangements of the same products and are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MODES = ("highest", "3x", "default")
+
+
+def rank_precisions(w_rank: int) -> tuple:
+    """Pass policy per Taylor rank: bf16_3x for the rank-0 signal and one
+    bf16 pass for the rank-1 correction at the default rank 2 (bounded by
+    |μ·n| < 2.5e-3 of the signal there); bf16_3x for every rank of a
+    guard-escalated rank > 2, where the corrections reach ~0.3."""
+    return ("3x", "default") if w_rank <= 2 else ("3x",) * w_rank
+
+
+# the gridder's policy is the degridder's (idg_tpu/ops/pallas/gridder.py:100)
+gridder_precisions = rank_precisions
+
+
+def rank_mode(precisions: tuple, r: int) -> str:
+    """The mode of rank r: the policy's last entry covers the ranks past it."""
+    return precisions[min(r, len(precisions) - 1)]
+
+
+def split_bf16(x: torch.Tensor):
+    """(hi, lo) of a float32 tensor as float32 values exactly representable
+    in bf16: hi = bf16(x), lo = bf16(x − hi), round to nearest even."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def dot_mixed(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """a @ b (float32, batched over leading axes) taken as `mode` says."""
+    if mode == "highest":
+        return a @ b
+    ah, al = split_bf16(a)
+    bh, bl = split_bf16(b)
+    if mode == "default":
+        return ah @ bh
+    if mode == "3x":
+        return ah @ bh + (ah @ bl + al @ bh)
+    raise ValueError(f"unknown precision mode {mode!r}; the port takes {MODES}")

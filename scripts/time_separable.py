@@ -1,0 +1,79 @@
+#!/usr/bin/env python3
+"""Time the port's separable kernels (K8b/K8c, K9b/K9c) of one checkout on
+one CUDA card, for A/B comparisons of two versions of the kernels.
+
+    python scripts/time_separable.py ROOT TAG [gridder,degridder]
+
+ROOT is a checkout of the repository (the current one, or the parent commit
+unpacked with `git archive` into a directory that .gitignore lists); its
+kernels are built into ROOT/idg_tpu_torch/_build. For each of cuda_v3,
+cuda_v4 and cuda_v5 of the chosen workloads it prints the kernel's error
+against its plain version on the first 512 subgrids of the default problem
+and its time on the full problem (min over windows of back-to-back
+launches), each line prefixed with TAG, plus the ptxas registers and spills
+of the N = 32 instances. Compare two checkouts in one call, in turns:
+parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import re
+import sys
+import time
+
+
+def main(argv) -> int:
+    root, tag = argv[1], argv[2]
+    workloads = argv[3].split(",") if len(argv) > 3 else ["gridder", "degridder"]
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from idg_tpu_torch.config import HarnessConfig, IDGParams
+    from idg_tpu_torch.data import initialize_subgrids, make_perf_observation
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops.common import slice_staged, stage
+    from idg_tpu_torch.ops.cuda import build
+    from idg_tpu_torch.ops.cuda.gridder_separable import plain_precisions
+    from idg_tpu_torch.utils.compare import check_error
+    from idg_tpu_torch.utils.timing import time_kernel
+
+    if not torch.cuda.is_available():
+        print("time_separable: no CUDA device is visible", file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    build.library()
+    print(f"{tag} build {time.perf_counter() - t0:.1f} s", flush=True)
+    lines = build.build_log.splitlines()
+    for i, line in enumerate(lines):
+        kernel = re.search(r"(degridder|gridder)_separable_kernelILi32ELb(\d)ELb(\d)", line)
+        if "Compiling entry" in line and kernel:
+            workload, bf16, recur = kernel.groups()
+            rung = "cuda_v5" if recur == "1" else "cuda_v4" if bf16 == "1" else "cuda_v3"
+            print(f"{tag} ptxas {workload} {rung} N = 32 |",
+                  " | ".join(x.strip() for x in lines[i + 2:i + 4]))
+
+    params = IDGParams.from_env()
+    stg = stage(params, make_perf_observation(params), "cuda")
+    sub = torch.as_tensor(np.ascontiguousarray(initialize_subgrids(
+        params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
+    small = slice_staged(stg, 0, 512)
+    harness = HarnessConfig(nr_warm_up_runs=1, nr_iterations=3, nr_windows=3)
+    for version in ("cuda_v3", "cuda_v4", "cuda_v5"):
+        prec, rec = plain_precisions(version, 2), version == "cuda_v5"
+        for workload in workloads:
+            kernel = getattr(kernels, f"{workload}_{version}")
+            if workload == "gridder":
+                small_args, full_args = (params, small, 2), (params, stg, 2)
+                want = kernels.gridder_separable_plain(params, small, 2, prec, rec)
+            else:
+                small_args, full_args = (params, small, sub[:512], 2), (params, stg, sub, 2)
+                want = kernels.degridder_separable_plain(params, small, sub[:512], 2, prec, rec)
+            err = check_error(kernel(*small_args), want, verbose=False).mean_error
+            ms = time_kernel(kernel, *full_args, harness=harness).seconds * 1e3
+            print(f"{tag} {workload} {version}: {ms:.3f} ms, vs plain {err:.3e}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

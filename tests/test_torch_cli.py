@@ -33,9 +33,22 @@ def test_list_names_the_kernels():
     assert out.returncode == 0, out.stderr
     assert "cuda_v6" in out.stdout and "cuda_v7" in out.stdout
     listed = {tuple(line.split()[:2]) for line in out.stdout.splitlines()}
-    for workload, versions in (("gridder", ("cuda_v1", "cuda_v2", "cuda_v6", "cuda_v7")),
-                               ("degridder", ("cuda_v1", "cuda_v2", "cuda_v7", "cuda_v8"))):
+    separable = ("cuda_v3", "cuda_v4", "cuda_v5")
+    for workload, versions in (("gridder", ("cuda_v1", "cuda_v2", *separable, "cuda_v6",
+                                            "cuda_v7")),
+                               ("degridder", ("cuda_v1", "cuda_v2", *separable, "cuda_v7",
+                                              "cuda_v8"))):
         assert {(workload, v) for v in versions} <= listed
+
+
+def test_info_names_the_versions():
+    out = _run("info")
+    assert out.returncode == 0, out.stderr
+    lines = {line.split("==")[0].strip(): line.split("==")[1] for line in out.stdout.splitlines()
+             if " versions" in line}
+    for workload in ("gridder", "degridder"):
+        assert {"cuda_v3", "cuda_v4", "cuda_v5"} <= set(lines[f"{workload} versions"].replace(
+            ",", " ").split())
 
 
 def test_cuda_device_without_card_fails_clearly():
@@ -109,8 +122,10 @@ def test_vadd_and_sweep_without_card_fail_clearly(command):
 @pytest.mark.parametrize("workload,version,w_obs,suffix,name,fell_back", [
     ("gridder", "cuda_v1", False, "", "gridder_cuda_v1", False),
     ("gridder", "cuda_v7", False, "_x", "gridder_cuda_v7_x", False),
-    ("gridder", "cuda_v7", True, "_x", "gridder_cuda_v6_fb_x_wobs", True),
-    ("degridder", "cuda_v8", True, "", "degridder_cuda_v7_fb_wobs", True),
+    ("gridder", "cuda_v7", True, "_x", "gridder_cuda_v4_fb_x_wobs", True),
+    ("degridder", "cuda_v8", True, "", "degridder_cuda_v4_fb_wobs", True),
+    ("gridder", "cuda_v5", False, "", "gridder_cuda_v5", False),
+    ("degridder", "cuda_v5", True, "", "degridder_cuda_v5_wobs", False),
     ("degridder", "cuda_v2", True, "", "degridder_cuda_v2_wobs", False),
 ])
 def test_perf_name_is_the_resolved_version(workload, version, w_obs, suffix, name, fell_back):

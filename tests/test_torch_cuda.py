@@ -302,3 +302,54 @@ def test_direct_launch_counters(card):
     assert kernels.degridder_cuda_v2.launches == 1
     assert kernels.vadd_cuda.launches == 1
     assert kernels.gridder_cuda_v6.launches == 0
+
+
+SEPARABLE = ("v3", "v4", "v5")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,channels,w_scale", [
+    (16, 8, None), (32, 7, None), (16, 8, 45.0), (16, 8, 1000.0), (32, 16, 1000.0),
+    (16, 48, None),
+])
+def test_separable_kernels_match_plain_and_oracle(card, n, channels, w_scale):
+    """K8b (v3, v4), K8c (v5), K9b (v3, v4) and K9c (v5) against their plain
+    versions and the oracle: T = 16 is one ragged tile, 7 and 48 channels a
+    short and a resyncing recurrence, w_scale 45 the rank-2 bf16 pass with
+    μ != 0, w_scale 1000 rank 4 (all passes bf16_3x)."""
+    params, obs, sub, rank = _inputs(n, channels, w_scale)
+    stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
+    sub_cpu, sub_gpu = torch.from_numpy(sub), torch.from_numpy(sub).to(card)
+    grid_oracle = gridder_reference(params, obs)
+    degrid_oracle = degridder_reference(params, obs, sub)
+    for version in SEPARABLE:
+        gridder = getattr(kernels, f"gridder_cuda_{version}")
+        degridder = getattr(kernels, f"degridder_cuda_{version}")
+        got = gridder(params, stg_gpu, rank)
+        torch.cuda.synchronize()
+        _gate(got, gridder(params, stg_cpu, rank))
+        _gate(got, grid_oracle)
+        got = degridder(params, stg_gpu, sub_gpu, rank)
+        torch.cuda.synchronize()
+        _gate(got, degridder(params, stg_cpu, sub_cpu, rank))
+        _gate(got, degrid_oracle)
+
+
+@pytest.mark.cuda
+def test_separable_launch_counters(card):
+    params, obs, sub, rank = _inputs(16, 8, None)
+    stg = stage(params, obs, card)
+    sub = torch.from_numpy(sub).to(card)
+    kernels.reset_launch_counts()
+    for version in SEPARABLE:
+        getattr(kernels, f"gridder_cuda_{version}")(params, stg, rank)
+        getattr(kernels, f"degridder_cuda_{version}")(params, stg, sub, rank)
+    kernels.gridder_cuda_v4(params, stg, rank)
+    kernels.gridder_separable_plain(params, stg, rank, ("3x", "default"), False)
+    kernels.degridder_separable_plain(params, stg, sub, rank, ("3x", "default"), True)
+    torch.cuda.synchronize()
+    assert kernels.gridder_cuda_v3.launches == 1
+    assert kernels.gridder_cuda_v4.launches == 2
+    assert kernels.gridder_cuda_v5.launches == 1
+    assert all(getattr(kernels, f"degridder_cuda_{v}").launches == 1 for v in SEPARABLE)
+    assert kernels.gridder_cuda_v6.launches == 0

@@ -42,8 +42,9 @@ from idg_tpu_torch.utils.compare import check_error
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 GATE = 1e-5
 STRESS_W = 2.0e4
-W_FREE = {"gridder": ("cuda_v7", "cuda_v6", "pallas_v7"),
-          "degridder": ("cuda_v8", "cuda_v7", "pallas_v8")}   # port rung, its fallback, JAX rung
+# port rung, the rank-taking kernel it runs at rank 1, its fallback, JAX rung
+W_FREE = {"gridder": ("cuda_v7", "cuda_v6", "cuda_v4", "pallas_v7"),
+          "degridder": ("cuda_v8", "cuda_v7", "cuda_v4", "pallas_v8")}
 TAKES_RANK = {"gridder": "cuda_v6", "degridder": "cuda_v7"}
 
 
@@ -138,7 +139,7 @@ def test_w_free_rungs_fall_back_on_nonzero_w(workload, override, small_params):
     """At w = 600 rank 1 is short: both packages warn "w-free" (and that an
     override is ignored) and fall back to a rank-taking rung at the same
     rank; the port's result meets the oracle."""
-    rung, fallback, jax_rung = W_FREE[workload]
+    rung, _, fallback, jax_rung = W_FREE[workload]
     obs, sub = jdata.make_observation(small_params, include_subgrids=True)
     obs = _stress_w(obs, 600.0)
     with pytest.warns(UserWarning) as jax_record:
@@ -160,14 +161,14 @@ def test_w_free_rungs_fall_back_on_nonzero_w(workload, override, small_params):
 
 @pytest.mark.parametrize("workload", ["gridder", "degridder"])
 def test_w_free_rungs_at_w0_are_the_rank1_kernel(workload, small_params):
-    rung, fallback, _ = W_FREE[workload]
+    rung, rank1_kernel, _, _ = W_FREE[workload]
     obs, sub = jdata.make_observation(small_params, include_subgrids=True)
     tp, tobs = _port(small_params), from_numpy_observation(obs)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert tapi._resolve(workload, rung, tp, tobs) == (rung, None)
         got = _port_run(workload, rung, small_params, obs, sub)
-    want = _port_run(workload, fallback, small_params, obs, sub, w_rank=1)
+    want = _port_run(workload, rank1_kernel, small_params, obs, sub, w_rank=1)
     assert torch.equal(got, want)
     assert _error(got, _oracle(workload, small_params, obs, sub)) <= GATE
 
@@ -184,7 +185,7 @@ def test_beyond_rank_6_raises_and_names_cuda_v1(workload, small_params):
     with pytest.raises(ValueError, match=r"rank-6 Taylor.*direct full-phase kernel \(cuda_v1\)"):
         tapi._resolve(workload, TAKES_RANK[workload], tp, tobs)
     with pytest.raises(ValueError, match="w-free"):
-        japi._resolve(workload, W_FREE[workload][2], small_params, obs)
+        japi._resolve(workload, W_FREE[workload][3], small_params, obs)
     with pytest.raises(ValueError, match=r"w-free.*direct full-phase kernel \(cuda_v1\)"):
         tapi._resolve(workload, W_FREE[workload][0], tp, tobs)
 
@@ -202,12 +203,18 @@ def test_direct_kernels_ignore_a_rank_override(workload, small_params):
 @pytest.mark.parametrize("workload,version,uniform,fallback,fixed,takes_rank", [
     ("gridder", "cuda_v1", False, None, None, False),
     ("gridder", "cuda_v2", True, "cuda_v1", None, False),
+    ("gridder", "cuda_v3", False, None, None, True),
+    ("gridder", "cuda_v4", False, None, None, True),
+    ("gridder", "cuda_v5", True, "cuda_v4", None, True),
     ("gridder", "cuda_v6", False, None, None, True),
-    ("gridder", "cuda_v7", False, "cuda_v6", 1, False),
+    ("gridder", "cuda_v7", False, "cuda_v4", 1, False),
     ("degridder", "cuda_v1", False, None, None, False),
     ("degridder", "cuda_v2", True, "cuda_v1", None, False),
+    ("degridder", "cuda_v3", False, None, None, True),
+    ("degridder", "cuda_v4", False, None, None, True),
+    ("degridder", "cuda_v5", True, "cuda_v4", None, True),
     ("degridder", "cuda_v7", False, None, None, True),
-    ("degridder", "cuda_v8", False, "cuda_v7", 1, False),
+    ("degridder", "cuda_v8", False, "cuda_v4", 1, False),
 ])
 def test_registry_entries(workload, version, uniform, fallback, fixed, takes_rank):
     entry = get_kernel(workload, version)
@@ -262,7 +269,8 @@ def test_sweep_check_on_cpu_passes_every_version():
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
         text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
-    for workload in ("gridder", "degridder"):
-        for version in (e.version for e in list_kernels(workload)):
-            assert f"=== {workload} {version} (check) ===" in out.stdout
-    assert out.stdout.count(">>> Result PASSED") == 8
+    versions = [(e.workload, e.version) for e in list_kernels()]
+    for workload, version in versions:
+        assert f"=== {workload} {version} (check) ===" in out.stdout
+    assert len(versions) == 14
+    assert out.stdout.count(">>> Result PASSED") == len(versions)
