@@ -23,7 +23,8 @@ non-zero:
               prologue) each against its plain version on the first 512
               subgrids (1e-5 gate), and each timed both ways on the full
               problem; K3 (inside the fused forms) against the plain (i)DFT
-              and roll on the full problem; both fused pipelines against the
+              and roll on the full problem, with its own bound and one
+              torch.fft.fft2 beside it; both fused pipelines against the
               f64 oracle on a 40-subgrid problem
   7. pipeline the `pipeline` command, grid and degrid, at the full default
               problem; launch counts reset before and read after each, and
@@ -64,10 +65,21 @@ non-zero:
               ways on the full problem (the plain version one call); then
               this slice's main path, perf mode for the six versions with
               counted launches, and the phase's seconds
-Then a JSON line of per-kernel results (each with its bound: the larger of
-its bytes over 3.35 TB/s and its operations over the FP32 or bf16 peak, and
-the time of one PyTorch call computing the same function where there is
-one), the `nvidia-smi` line, and last the result line
+ 11. polstack the pol-stacked degridder cuda_v6 (K9d, tensor cores): ptxas
+              registers and spills of each instance; against the f64 oracle
+              at w = 0, at rank 4 (w_scale 1000) and at C = 48 (the
+              recurrence resyncs), and on non-uniform wavenumbers resolving
+              to cuda_v4 with one counted launch; K9d against its plain
+              version on the first 512 default subgrids (1e-5 gate), both
+              timed on the full problem (the plain version one call); this
+              slice's main path, perf mode with counted launches and the
+              roofline %; `python -m idg_tpu_torch.bench` with
+              BENCH_DEGRIDDER_KERNEL=cuda_v6; and the phase's seconds
+Then a JSON line of per-kernel results (each with its bound from
+idg_tpu_torch/utils/roofline.py: the larger of its bytes over 3.35 TB/s and
+its operations over the FP32 or bf16 peak; and the time of one PyTorch call
+computing the same function where there is one), the `nvidia-smi` line, and
+last the result line
 {"ok": true, "device": {...}}. Perf CSVs go to $OUTPUT_PATH, by default a
 fresh temporary directory.
 """
@@ -93,12 +105,7 @@ STRESS_W = 2.0e4     # a w no Taylor rank reaches (tests/test_guards.py:171-185)
 DIRECT = (("gridder", "cuda_v1"), ("gridder", "cuda_v2"),
           ("degridder", "cuda_v1"), ("degridder", "cuda_v2"))
 SEPARABLE = tuple((w, f"cuda_v{i}") for w in ("gridder", "degridder") for i in (3, 4, 5))
-# published H100 SXM peaks (NVIDIA's data sheet): the bound of a kernel is
-# the larger of its bytes over the memory rate and its operations over the
-# rate of the unit that does them
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
+RESYNC_CHANNELS = 48   # the channel recurrence restarts exactly at c = 16 and 32
 
 
 def tensor_bytes(*objs) -> int:
@@ -117,16 +124,17 @@ def tensor_bytes(*objs) -> int:
 
 
 def kernel_row(name, source, replaces, max_abs, ms, plain_ms, nbytes, flops,
-               peak=FP32_FLOP_PER_S, library_ms=None) -> dict:
+               unit="fp32", library_ms=None) -> dict:
     """One entry of the JSON `kernels` line. `nbytes` reads each input once
     and writes each output once; `flops` are the operations of this call,
-    done at `peak` (FP32 on the CUDA cores, bf16 on the tensor cores)."""
-    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    done on `unit` ("fp32", the CUDA cores, or "bf16", the tensor cores);
+    the bound comes from idg_tpu_torch/utils/roofline.py."""
+    from idg_tpu_torch.utils.roofline import bound_seconds
+
+    bound_s, bound_by = bound_seconds(flops, nbytes, unit)
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, flops_ms),
-                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                library_ms=library_ms)
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def model_flops(params, fused: bool = False) -> float:
@@ -235,12 +243,12 @@ def compare(name: str, got, want, exact: bool = False, tag: str = "grid") -> flo
     return max_abs
 
 
-def kernels_vs_plain(rows, tag, cases, timing, plain_timing, flops, peak=FP32_FLOP_PER_S):
+def kernels_vs_plain(rows, tag, cases, timing, plain_timing, flops, unit="fp32"):
     """Each case (name, kernel, plain, small_args, full_args, source,
     replaces): the kernel against its plain version on the small arguments,
     finite on the full ones, both timed there; appends its JSON entry, with
-    `flops` operations done at `peak` (no library call computes these
-    functions)."""
+    `flops` operations done on `unit` (a name, or a function of the kernel's
+    name; no library call computes these functions)."""
     import torch
 
     for name, kernel, plain, small_args, full_args, source, replaces in cases:
@@ -257,7 +265,7 @@ def kernels_vs_plain(rows, tag, cases, timing, plain_timing, flops, peak=FP32_FL
         phase(tag, f"{name} full problem ({full_args[1].nr_subgrids} subgrids): kernel "
                    f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
         rows.append(kernel_row(name, source, replaces, max_abs, k_ms, p_ms, nbytes, flops,
-                               peak(name) if callable(peak) else peak))
+                               unit(name) if callable(unit) else unit))
 
 
 def grid_stage_phase(rows, timing, plain_timing):
@@ -275,6 +283,7 @@ def grid_stage_phase(rows, timing, plain_timing):
                                        staged_degridder_pieces_chunk_consumers)
     from idg_tpu_torch.ops.common import slice_staged, stage
     from idg_tpu_torch.ops.cuda.grid import _home_corners
+    from idg_tpu_torch.utils.roofline import bound_seconds
 
     # the fused pipelines against the f64 oracle, 40 subgrids at N = 32
     params = IDGParams(grid_size=256, nr_stations=5, nr_timeslots=4, nr_timesteps_subgrid=32,
@@ -375,6 +384,13 @@ def grid_stage_phase(rows, timing, plain_timing):
     compare("K3 (inverse, in the fused gridder) vs plain on the full problem",
             pieces, tgrid.pieces_from_subgrids(sub, oyx))
     k3_plain = device_ms(tgrid.pieces_from_subgrids, sub, oyx, harness=plain_timing)
+    # K3's own bound (the two-stage DFT's 2·P·8·N³ operations a subgrid, its
+    # input and output once) and its library yardstick, one torch.fft.fft2
+    # over the c64[S, P, N, N] subgrids
+    k3_s, k3_by = bound_seconds(2.0 * p * 8 * n**3 * params.nr_subgrids, 2 * sub.nbytes)
+    k3_lib = device_ms(torch.fft.fft2, sub, harness=timing)
+    phase("grid", f"K3 (two-stage DFT, {params.nr_subgrids} subgrids): bound {k3_s * 1e3:.3f} ms "
+                  f"({k3_by}), library (torch.fft.fft2 over c64{list(sub.shape)}) {k3_lib:.3f} ms")
     base = {"gridder_cuda_v6_pieces": device_ms(kernels.gridder_cuda_v6, params, stg, 2,
                                                 harness=timing),
             "degridder_cuda_v7_fused": device_ms(kernels.degridder_cuda_v7, params, stg,
@@ -785,6 +801,7 @@ def separable_phase(rows, timing):
     from idg_tpu_torch.ops.common import slice_staged, stage
     from idg_tpu_torch.ops.cuda import build
     from idg_tpu_torch.ops.cuda.gridder_separable import plain_precisions
+    from idg_tpu_torch.utils import roofline
     from idg_tpu_torch.utils.compare import check_error
     from idg_tpu_torch.utils.costs import workload_costs
 
@@ -869,7 +886,7 @@ def separable_phase(rows, timing):
         cases.append((f"{workload}_{version}", kernel, plain, small_args, full_args, source,
                       special.get(version, replaces)))
     kernels_vs_plain(rows, "separable", cases, timing, plain_once, model_flops(params),
-                     peak=lambda name: FP32_FLOP_PER_S if name.endswith("v3") else BF16_FLOP_PER_S)
+                     unit=lambda name: roofline.unit(*name.split("_", 1)))
     del stg, small, sub_t
     torch.cuda.empty_cache()
 
@@ -891,6 +908,124 @@ def separable_phase(rows, timing):
         if counts[name] == 0:
             raise RuntimeError(f"{name} was never launched on the main path")
     phase("separable", f"phase 10: {time.perf_counter() - t_start:.1f} s")
+
+
+def polstack_phase(rows, timing):
+    """Phase 11: the pol-stacked degridder cuda_v6 (K9d, tensor cores):
+    ptxas lines of its instances; against the f64 oracle at w = 0, at rank
+    4 and at C = 48, and on non-uniform wavenumbers resolving to cuda_v4,
+    with counted launches; K9d against its plain version and timed; then
+    perf mode with counted launches, and the bench with
+    BENCH_DEGRIDDER_KERNEL=cuda_v6."""
+    import dataclasses
+    import subprocess
+    import warnings
+
+    import torch
+
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.bench import V100_DEGRIDDER_REFERENCE_MVIS_S
+    from idg_tpu_torch.config import HarnessConfig, IDGParams
+    from idg_tpu_torch.data import (initialize_subgrids, make_observation,
+                                    make_perf_observation, make_w_observation)
+    from idg_tpu_torch.models.reference import degridder_reference
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops.api import _resolve, run_degridder
+    from idg_tpu_torch.ops.common import slice_staged, stage
+    from idg_tpu_torch.ops.cuda import build
+    from idg_tpu_torch.utils.compare import check_error
+    from idg_tpu_torch.utils.costs import workload_costs
+    from idg_tpu_torch.utils.report import device_name
+    from idg_tpu_torch.utils.roofline import roofline_fraction
+
+    t_start = time.perf_counter()
+    lines = build.build_log.splitlines()
+    for i, line in enumerate(lines):
+        kernel = re.search(r"degridder_polstack_kernelILi(\d+)E", line)
+        if "Compiling entry" in line and kernel:
+            phase("polstack", f"ptxas degridder cuda_v6 N = {kernel.group(1)}: "
+                              + " | ".join(x.strip() for x in lines[i + 2:i + 4]))
+
+    # against the f64 oracle on the correctness problem: w = 0, rank 4
+    # (w_scale 1000), 48 channels (the recurrence resyncs at c = 16, 32),
+    # and non-uniform wavenumbers, which must resolve to cuda_v4 and launch
+    # its kernel once
+    params = IDGParams.correctness_defaults()
+    obs0, _ = make_observation(params)
+    sub = initialize_subgrids(params.nr_subgrids, params.nr_correlations, params.subgrid_size)
+    params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+    params_c = dataclasses.replace(params, nr_channels=RESYNC_CHANNELS)
+    obs_c, _ = make_observation(params_c)
+    k = np.array(obs0.wavenumbers, copy=True)
+    k[-1] *= 1.05
+    obs_nu = dataclasses.replace(obs0, wavenumbers=k)
+    for label, p, obs, resolves_to in (
+            ("w=0", params, obs0, "cuda_v6"), ("rank 4 (w_scale 1000)", params_w, obs_w, "cuda_v6"),
+            (f"C = {RESYNC_CHANNELS} (resync)", params_c, obs_c, "cuda_v6"),
+            ("non-uniform channels", params, obs_nu, "cuda_v4")):
+        kernels.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as record:
+            warnings.simplefilter("always")
+            resolved = _resolve("degridder", "cuda_v6", p, obs)
+            got = run_degridder(p, obs, sub, "cuda_v6", device="cuda")
+        torch.cuda.synchronize()
+        launched = {name: n for name, n in launch_counts().items() if n}
+        res = check_error(got, degridder_reference(p, obs, sub), verbose=False)
+        ok = (res.passed and resolved[0] == resolves_to
+              and launched == {f"degridder_{resolves_to}": 1}
+              and (resolved[1] or 2) >= (4 if "rank 4" in label else 2)
+              and any("uniform channel" in str(w.message) for w in record) == (
+                  resolves_to != "cuda_v6"))
+        phase("polstack", f"degridder cuda_v6 {label}: resolved {resolved}, mean_error "
+                          f"{res.mean_error:.3e} (gate {GATE:g}), launches {launched} "
+                          f"{'PASSED' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"degridder cuda_v6 {label} failed")
+
+    # K9d against its plain version on the first 512 default subgrids, then
+    # both timed on the full problem (the plain version one call)
+    params = IDGParams.from_env()
+    stg = stage(params, make_perf_observation(params), "cuda", with_vis=False)
+    sub_t = torch.as_tensor(np.ascontiguousarray(initialize_subgrids(
+        params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
+    small = slice_staged(stg, 0, COMPARE_SUBGRIDS)
+    plain_once = HarnessConfig(nr_warm_up_runs=0, nr_iterations=1, nr_windows=1)
+    case = ("degridder_cuda_v6", kernels.degridder_cuda_v6,
+            lambda p, s, sb, r: kernels.degridder_polstack_plain(p, s, sb, r),
+            (params, small, sub_t[:COMPARE_SUBGRIDS], 2), (params, stg, sub_t, 2),
+            "idg_tpu_torch/csrc/degridder_polstack.cu", "idg_tpu/ops/pallas/degridder.py:821")
+    kernels_vs_plain(rows, "polstack", [case], timing, plain_once, model_flops(params),
+                     unit="bf16")
+    del stg, small, sub_t
+    torch.cuda.empty_cache()
+
+    # the main path of this slice: perf mode through the CLI, counts set to
+    # 0 just before and read just after
+    gflops, gbytes, mvis = workload_costs(params)
+    kernels.reset_launch_counts()
+    seconds = cli._perf_one("degridder", "cuda_v6")
+    launched = launch_counts()["degridder_cuda_v6"]
+    share = roofline_fraction(gflops / seconds, gflops, gbytes, device_name(), "degridder",
+                              "cuda_v6")
+    phase("perf", f"degridder_cuda_v6: {seconds * 1e3:.3f} ms/pass, {mvis / seconds:.2f} MVis/s "
+                  f"({mvis / seconds / V100_DEGRIDDER_REFERENCE_MVIS_S:.1f}x the V100 naive "
+                  f"{V100_DEGRIDDER_REFERENCE_MVIS_S}), roofline_pct "
+                  f"{'n/a' if share is None else f'{100 * share:.2f}'}, launches {launched}")
+    next(row for row in rows if row["name"] == "degridder_cuda_v6")["launches"] = launched
+    if launched == 0:
+        raise RuntimeError("degridder_cuda_v6 was never launched on the main path")
+
+    # the bench with the new rung, in its own process
+    torch.cuda.empty_cache()
+    env = dict(os.environ, BENCH_DEGRIDDER_KERNEL="cuda_v6", PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-m", "idg_tpu_torch.bench"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=900)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    phase("polstack", f"bench (BENCH_DEGRIDDER_KERNEL=cuda_v6), exit {out.returncode}: {last}")
+    if out.returncode != 0 or json.loads(last or "{}").get(
+            "degridder_metric") != "degridder_cuda_v6_throughput":
+        raise RuntimeError(f"bench with cuda_v6 failed: {out.stderr[-2000:]}")
+    phase("polstack", f"phase 11: {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -1021,6 +1156,9 @@ def main() -> int:
 
     # 10. the separable rungs: K8b, K8c, K9b, K9c
     separable_phase(rows, timing)
+
+    # 11. the pol-stacked degridder: K9d
+    polstack_phase(rows, timing)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

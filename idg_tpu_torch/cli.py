@@ -9,6 +9,7 @@ mode and device, and honors the same env vars.
   python -m idg_tpu_torch run --workload degridder --version cuda_v7 --mode perf
   python -m idg_tpu_torch run --workload gridder --version cuda_v1 --w-obs
   python -m idg_tpu_torch run --workload degridder --version cuda_v4 --mode check
+  python -m idg_tpu_torch run --workload degridder --version cuda_v6
   python -m idg_tpu_torch sweep --mode check --device cpu
   python -m idg_tpu_torch vadd --cuda
   python -m idg_tpu_torch pipeline --direction grid
@@ -62,12 +63,15 @@ def _perf_one(workload: str, version: str, w_rank: int | None = None,
               w_obs: bool = False) -> float:
     """Performance mode (p_run_gridder_ semantics, app/CUDA/util.cpp:172-249):
     stage once, time bare kernel launches, print and write the CSV, named as
-    `_perf_problem` says. Returns the min-of-windows seconds per launch."""
+    `_perf_problem` says, with the roofline % of the resolved rung's unit on
+    a known card (idg_tpu/cli.py:175-177). Returns the min-of-windows
+    seconds per launch."""
     from .config import HarnessConfig
     from .ops.api import resolve_device, staged_runner
     from .utils.costs import workload_costs
     from .utils.printing import print_device_info, print_parameters
     from .utils.report import device_name, report, report_csv
+    from .utils.roofline import roofline_fraction
     from .utils.timing import time_kernel
 
     dev = resolve_device(device)
@@ -82,9 +86,13 @@ def _perf_one(workload: str, version: str, w_rank: int | None = None,
                              w_rank=w_rank, device=dev)
     timing = time_kernel(fn, *args, harness=harness)
     gflops, gbytes, mvis = workload_costs(params)
-    report(name, timing.seconds, gflops, gbytes, mvis, seconds_std=timing.seconds_std)
+    roofline = roofline_fraction(gflops / timing.seconds, gflops, gbytes, device_name(),
+                                 workload, version)
+    report(name, timing.seconds, gflops, gbytes, mvis, seconds_std=timing.seconds_std,
+           roofline=roofline)
     report_csv(name, device_name(), timing.seconds, gflops, gbytes, mvis,
-               output_path=harness.output_path, seconds_std=timing.seconds_std)
+               output_path=harness.output_path, seconds_std=timing.seconds_std,
+               roofline=roofline)
     return timing.seconds
 
 

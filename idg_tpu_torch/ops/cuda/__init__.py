@@ -4,11 +4,12 @@ counterpart of ``idg_tpu/ops/pallas``, of the Pallas kernels of
 registers them; nothing is built until a kernel is first launched on a CUDA
 tensor."""
 
-from . import (degridder, degridder_direct, degridder_separable,  # noqa: F401  (registers kernels)
-               gridder, gridder_direct, gridder_separable)
+from . import (degridder, degridder_direct, degridder_polstack,  # noqa: F401  (registers kernels)
+               degridder_separable, gridder, gridder_direct, gridder_separable)
 from ..vadd import vadd_cuda, vadd_plain
 from .degridder import degridder_cuda_v7, degridder_plain
 from .degridder_direct import degridder_cuda_v1, degridder_cuda_v2, degridder_direct_plain
+from .degridder_polstack import degridder_cuda_v6, degridder_polstack_plain
 from .degridder_separable import (degridder_cuda_v3, degridder_cuda_v4, degridder_cuda_v5,
                                   degridder_separable_plain)
 from .grid import (grid_add_cuda, grid_add_merged_cuda, grid_add_merged_plain,
@@ -24,7 +25,8 @@ KERNELS = (gridder_cuda_v6, gridder_cuda_v6_pieces, degridder_cuda_v7, grid_add_
            grid_extract_cuda, grid_add_pieces_cuda, grid_add_merged_cuda,
            grid_add_scatter_cuda, grid_add_slots_cuda, gridder_cuda_v1, gridder_cuda_v2,
            degridder_cuda_v1, degridder_cuda_v2, vadd_cuda, gridder_cuda_v3, gridder_cuda_v4,
-           gridder_cuda_v5, degridder_cuda_v3, degridder_cuda_v4, degridder_cuda_v5)
+           gridder_cuda_v5, degridder_cuda_v3, degridder_cuda_v4, degridder_cuda_v5,
+           degridder_cuda_v6)
 
 
 def reset_launch_counts() -> None:

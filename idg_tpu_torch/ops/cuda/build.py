@@ -51,6 +51,7 @@ SIGNATURES = {
     "idg_vadd": [_P] * 3 + [_L] + [_P],
     "idg_gridder_separable": [_P] * 15 + [_I] * 7 + [_P],
     "idg_degridder_separable": [_P] * 15 + [_I] * 7 + [_P],
+    "idg_degridder_polstack": [_P] * 15 + [_I] * 6 + [_P],
 }
 
 _library = None

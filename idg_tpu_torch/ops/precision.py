@@ -1,27 +1,34 @@
-"""Matrix-unit precision policies of the separable rungs and the split
-product they name, in torch ops.
+"""Matrix-unit precision policies of the separable and pol-stacked rungs and
+the split product they name, in torch ops.
 
 The counterpart of ``idg_tpu/ops/pallas/gridder.py:_dot_mixed`` /
-``gridder_precisions`` and ``idg_tpu/ops/pallas/common.py:rank_precisions``.
-A mode names how a float32 product is taken:
+``gridder_precisions``, ``idg_tpu/ops/pallas/common.py:rank_precisions`` and
+``idg_tpu/ops/pallas/degridder.py:degridder_precisions``. A mode names how a
+float32 product is taken, with hi = bf16(x), lo = bf16(x − hi), both
+rounded to nearest even:
 
   "highest"  float32 throughout
-  "3x"       bf16_3x: hi = bf16(x), lo = bf16(x − hi), both rounded to nearest
-             even; lh·rh + (lh·rl + ll·rh), each product exact in float32
+  "3x"       bf16_3x: lh·rh + (lh·rl + ll·rh), each product exact in
+             float32; lo·lo is dropped
+  "3x2k"     all four split products, lo·lo included, as two products over
+             the doubled contraction axis: [lh | ll]·[rh; rl] + [lh | ll]·[rl; rh]
+             (the first sums lh·rh + ll·rl, the second lh·rl + ll·rh)
   "default"  lh·rh, one bf16 pass (what the TPU runs for DEFAULT precision;
              JAX on the CPU takes float32 there instead)
 
-The tensor-core kernels (csrc/gridder_separable.cu, degridder_separable.cu)
-take the same split with ``__float2bfloat16_rn`` and run each pass as one
-bf16 ``mma.sync`` into float32 accumulators. JAX's "3x2"/"3x2k" are
-tile-filling arrangements of the same products and are not ported.
+JAX's "3x2" also recovers all four products, by stacking the splits on the
+row axis; it is a TPU layout that no rung of the port runs and is not
+ported. The tensor-core kernels (csrc/gridder_separable.cu,
+degridder_separable.cu, degridder_polstack.cu) take the same split with
+``__float2bfloat16_rn`` and run each product as bf16 ``mma.sync`` into
+float32 accumulators.
 """
 
 from __future__ import annotations
 
 import torch
 
-MODES = ("highest", "3x", "default")
+MODES = ("highest", "3x", "3x2k", "default")
 
 
 def rank_precisions(w_rank: int) -> tuple:
@@ -34,6 +41,14 @@ def rank_precisions(w_rank: int) -> tuple:
 
 # the gridder's policy is the degridder's (idg_tpu/ops/pallas/gridder.py:100)
 gridder_precisions = rank_precisions
+
+
+def degridder_precisions(w_rank: int) -> tuple:
+    """Pass policy of the pol-stacked degridder (cuda_v6, as JAX's pallas_v6,
+    idg_tpu/ops/pallas/degridder.py:52-57): "3x2k" for the rank-0 signal,
+    one bf16 pass for the rank-1 correction at rank ≤ 2, "3x2k" for every
+    rank of a guard-escalated rank."""
+    return ("3x2k", "default") if w_rank <= 2 else ("3x2k",) * w_rank
 
 
 def rank_mode(precisions: tuple, r: int) -> str:
@@ -58,4 +73,7 @@ def dot_mixed(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
         return ah @ bh
     if mode == "3x":
         return ah @ bh + (ah @ bl + al @ bh)
+    if mode == "3x2k":
+        a2 = torch.cat([ah, al], dim=-1)
+        return a2 @ torch.cat([bh, bl], dim=-2) + a2 @ torch.cat([bl, bh], dim=-2)
     raise ValueError(f"unknown precision mode {mode!r}; the port takes {MODES}")

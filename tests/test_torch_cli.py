@@ -36,8 +36,8 @@ def test_list_names_the_kernels():
     separable = ("cuda_v3", "cuda_v4", "cuda_v5")
     for workload, versions in (("gridder", ("cuda_v1", "cuda_v2", *separable, "cuda_v6",
                                             "cuda_v7")),
-                               ("degridder", ("cuda_v1", "cuda_v2", *separable, "cuda_v7",
-                                              "cuda_v8"))):
+                               ("degridder", ("cuda_v1", "cuda_v2", *separable, "cuda_v6",
+                                              "cuda_v7", "cuda_v8"))):
         assert {(workload, v) for v in versions} <= listed
 
 

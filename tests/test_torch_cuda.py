@@ -353,3 +353,37 @@ def test_separable_launch_counters(card):
     assert kernels.gridder_cuda_v5.launches == 1
     assert all(getattr(kernels, f"degridder_cuda_{v}").launches == 1 for v in SEPARABLE)
     assert kernels.gridder_cuda_v6.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,channels,w_scale", [
+    (16, 8, None), (32, 16, None), (16, 8, 45.0), (16, 8, 1000.0), (32, 16, 1000.0),
+    (16, 48, None), (32, 48, None),
+])
+def test_polstack_kernel_matches_plain_and_oracle(card, n, channels, w_scale):
+    """K9d (degridder cuda_v6) against its plain version and the oracle at
+    N = 16 and 32: rank 2 at w = 0 and with μ != 0 (w_scale 45, the rank-1
+    single bf16 pass), rank 4 (w_scale 1000, "3x2k" throughout), and 48
+    channels, where the recurrence resyncs at c = 16 and 32."""
+    params, obs, sub, _ = _inputs(n, channels, w_scale)
+    rank = _resolve("degridder", "cuda_v6", params, obs)[1] or 2
+    assert (rank == 4) == (w_scale == 1000.0)
+    stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
+    got = kernels.degridder_cuda_v6(params, stg_gpu, torch.from_numpy(sub).to(card), rank)
+    torch.cuda.synchronize()
+    _gate(got, kernels.degridder_cuda_v6(params, stg_cpu, torch.from_numpy(sub), rank))
+    _gate(got, degridder_reference(params, obs, sub))
+
+
+@pytest.mark.cuda
+def test_polstack_launch_counter(card):
+    params, obs, sub, rank = _inputs(16, 8, None)
+    stg = stage(params, obs, card)
+    sub = torch.from_numpy(sub).to(card)
+    kernels.reset_launch_counts()
+    kernels.degridder_cuda_v6(params, stg, sub, rank)
+    kernels.degridder_cuda_v6(params, stg, sub, 4)
+    kernels.degridder_polstack_plain(params, stg, sub, rank)
+    torch.cuda.synchronize()
+    assert kernels.degridder_cuda_v6.launches == 2
+    assert kernels.degridder_cuda_v5.launches == 0

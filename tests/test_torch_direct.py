@@ -28,6 +28,7 @@ import torch
 
 import idg_tpu.data as jdata
 import idg_tpu.ops.api as japi
+import idg_tpu.ops.registry as jregistry
 import idg_tpu.ops.vadd as jvadd
 import idg_tpu_torch.config as tcfg
 import idg_tpu_torch.ops.api as tapi
@@ -213,6 +214,7 @@ def test_direct_kernels_ignore_a_rank_override(workload, small_params):
     ("degridder", "cuda_v3", False, None, None, True),
     ("degridder", "cuda_v4", False, None, None, True),
     ("degridder", "cuda_v5", True, "cuda_v4", None, True),
+    ("degridder", "cuda_v6", True, "cuda_v4", None, True),
     ("degridder", "cuda_v7", False, None, None, True),
     ("degridder", "cuda_v8", False, "cuda_v4", 1, False),
 ])
@@ -221,6 +223,36 @@ def test_registry_entries(workload, version, uniform, fallback, fixed, takes_ran
     assert (entry.family, entry.uniform_channels, entry.fallback, entry.fixed_w_rank) == (
         "cuda", uniform, fallback, fixed)
     assert tapi._accepts(workload, version, "w_rank") == takes_rank
+
+
+# The one expected difference from JAX's guards: K1/K2's exact-phase rungs
+# take no channel recurrence, so they are not uniform_channels, and gridder
+# cuda_v6 / degridder cuda_v7 register no fallback, since theirs served only
+# the channel guard (ROADMAP Queue 3).
+EXACT_PHASE_RUNGS = {("gridder", "cuda_v6"), ("gridder", "cuda_v7"),
+                     ("degridder", "cuda_v7"), ("degridder", "cuda_v8")}
+
+
+PALLAS_RUNGS = [("gridder", f"pallas_v{i}") for i in range(1, 8)] + [
+    ("degridder", f"pallas_v{i}") for i in range(1, 9)]
+
+
+@pytest.mark.parametrize("workload,jax_version", PALLAS_RUNGS)
+def test_guards_match_jax_rung_for_rung(workload, jax_version):
+    """Each JAX pallas_vN and the port's cuda_vN: the same uniform_channels,
+    fallback (pallas_vK -> cuda_vK) and fixed_w_rank, but for the listed
+    exact-phase rungs. PALLAS_RUNGS is every pallas rung JAX registers."""
+    assert sorted((e.workload, e.version) for e in jregistry.list_kernels()
+                  if e.family == "pallas") == sorted(PALLAS_RUNGS)
+    jax_entry = jregistry.get_kernel(workload, jax_version)
+    version = jax_version.replace("pallas_", "cuda_")
+    entry = get_kernel(workload, version)
+    want = (jax_entry.uniform_channels,
+            jax_entry.fallback and jax_entry.fallback.replace("pallas_", "cuda_"),
+            jax_entry.fixed_w_rank)
+    if (workload, version) in EXACT_PHASE_RUNGS:
+        want = (False, None if entry.fixed_w_rank is None else want[1], want[2])
+    assert (entry.uniform_channels, entry.fallback, entry.fixed_w_rank) == want
 
 
 def test_cpu_tensors_leave_launch_counters_at_zero(small_params):
@@ -272,5 +304,5 @@ def test_sweep_check_on_cpu_passes_every_version():
     versions = [(e.workload, e.version) for e in list_kernels()]
     for workload, version in versions:
         assert f"=== {workload} {version} (check) ===" in out.stdout
-    assert len(versions) == 14
+    assert len(versions) == 15
     assert out.stdout.count(">>> Result PASSED") == len(versions)

@@ -82,7 +82,7 @@ def _error(got, want):
     return check_error(got, want, verbose=False).mean_error
 
 
-@pytest.mark.parametrize("mode", ["3x", "highest", "default"])
+@pytest.mark.parametrize("mode", ["3x", "highest", "default", "3x2k"])
 def test_dot_mixed_matches_jax(mode):
     """The port's split product against JAX's _dot_mixed on the same float32
     operands. For "default" JAX's CPU pass is float32, so the port's single
