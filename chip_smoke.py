@@ -75,9 +75,19 @@ non-zero:
               slice's main path, perf mode with counted launches and the
               roofline %; `python -m idg_tpu_torch.bench` with
               BENCH_DEGRIDDER_KERNEL=cuda_v6; and the phase's seconds
+ 12. redesign the redesigned K1 (gridder cuda_v6, TF32 wgmma) and K10: ptxas
+              registers and spills and the cuobjdump HGMMA count of every
+              K1 instance (each must have some); K1, both forms, against
+              the f64 oracle at w = 0, at rank 4, at C = 48, on non-uniform
+              wavenumbers (cuda_v6, no fallback) and on a ragged V, with
+              counted launches (4e-6); K1, both forms, against its plain
+              version on the first 512 default subgrids (3e-6) and timed;
+              K10 exactly against torch.add at n = 2^28 and at sizes off
+              its chunk boundaries, aligned and misaligned, then timed
+              beside torch.add; and the phase's seconds
 Then a JSON line of per-kernel results (each with its bound from
 idg_tpu_torch/utils/roofline.py: the larger of its bytes over 3.35 TB/s and
-its operations over the FP32 or bf16 peak; and the time of one PyTorch call
+its operations over the FP32, bf16 or TF32 peak; and the time of one PyTorch call
 computing the same function where there is one), the `nvidia-smi` line, and
 last the result line
 {"ok": true, "device": {...}}. Perf CSVs go to $OUTPUT_PATH, by default a
@@ -106,6 +116,8 @@ DIRECT = (("gridder", "cuda_v1"), ("gridder", "cuda_v2"),
           ("degridder", "cuda_v1"), ("degridder", "cuda_v2"))
 SEPARABLE = tuple((w, f"cuda_v{i}") for w in ("gridder", "degridder") for i in (3, 4, 5))
 RESYNC_CHANNELS = 48   # the channel recurrence restarts exactly at c = 16 and 32
+K1_ORACLE_GATE = 4e-6  # K1 (TF32, three passes) against the f64 oracle
+K1_PLAIN_GATE = 3e-6   # K1 against its float32 plain version, 512 default subgrids
 
 
 def tensor_bytes(*objs) -> int:
@@ -127,8 +139,8 @@ def kernel_row(name, source, replaces, max_abs, ms, plain_ms, nbytes, flops,
                unit="fp32", library_ms=None) -> dict:
     """One entry of the JSON `kernels` line. `nbytes` reads each input once
     and writes each output once; `flops` are the operations of this call,
-    done on `unit` ("fp32", the CUDA cores, or "bf16", the tensor cores);
-    the bound comes from idg_tpu_torch/utils/roofline.py."""
+    done on `unit` ("fp32", the CUDA cores, or "bf16" / "tf32", the tensor
+    cores); the bound comes from idg_tpu_torch/utils/roofline.py."""
     from idg_tpu_torch.utils.roofline import bound_seconds
 
     bound_s, bound_by = bound_seconds(flops, nbytes, unit)
@@ -283,6 +295,7 @@ def grid_stage_phase(rows, timing, plain_timing):
                                        staged_degridder_pieces_chunk_consumers)
     from idg_tpu_torch.ops.common import slice_staged, stage
     from idg_tpu_torch.ops.cuda.grid import _home_corners
+    from idg_tpu_torch.utils import roofline
     from idg_tpu_torch.utils.roofline import bound_seconds
 
     # the fused pipelines against the f64 oracle, 40 subgrids at N = 32
@@ -351,6 +364,7 @@ def grid_stage_phase(rows, timing, plain_timing):
     add_idx = window_index(hcy, hcx, oyx[:, 0], oyx[:, 1], n, g, p)
     ecy, ecx = cy.long() % g, cx.long() % g
     extract_idx = window_index(ecy, ecx, ecy % n, ecx % n, n, g, p)
+    units = {"gridder_cuda_v6_pieces": roofline.unit("gridder", "cuda_v6")}   # TF32
     flops = {"gridder_cuda_v6_pieces": model_flops(params, True),
              "grid_add_cuda": 2.0 * pieces.numel(), "grid_extract_cuda": 0.0,
              "degridder_cuda_v7_fused": model_flops(params, True)}
@@ -374,7 +388,7 @@ def grid_stage_phase(rows, timing, plain_timing):
                       f"{k_ms:.3f} ms, plain {p_ms:.3f} ms"
                       + (f", library {lib_ms:.3f} ms" if lib_ms is not None else ""))
         rows.append(kernel_row(name, source, replaces, max_abs, k_ms, p_ms, nbytes,
-                               flops[name], library_ms=lib_ms))
+                               flops[name], units.get(name, "fp32"), library_ms=lib_ms))
     del add_idx, extract_idx
 
     # K3 runs inside the fused kernels: check it on the full problem against
@@ -1028,6 +1042,156 @@ def polstack_phase(rows, timing):
     phase("polstack", f"phase 11: {time.perf_counter() - t_start:.1f} s")
 
 
+def sass_counts(library: str, pattern: str, opcode: str) -> dict:
+    """{function: count of `opcode` instructions} over the functions of the
+    built library whose mangled name matches `pattern`, from
+    `cuobjdump --dump-sass` (beside nvcc in the toolkit)."""
+    import subprocess
+
+    from idg_tpu_torch.ops.cuda import build
+
+    cuobjdump = pathlib.Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-sass", library], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if re.search(pattern, name):
+                counts[name] = 0
+            else:
+                name = None
+        elif name is not None and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
+
+
+def redesign_phase(rows, timing):
+    """Phase 12: the redesigned K1 (gridder cuda_v6, TF32 wgmma) and K10
+    (vadd): ptxas lines and HGMMA counts of every K1 instance; K1, both
+    forms, against the f64 oracle at w = 0, rank 4, C = 48, on non-uniform
+    wavenumbers (no fallback) and on a ragged V, with counted launches; K1
+    against its plain version on the first 512 default subgrids; K10 exactly
+    against torch.add at n = 2^28 and at sizes off its chunk boundaries,
+    aligned and misaligned; then both timed."""
+    import dataclasses
+
+    import torch
+
+    from idg_tpu_torch.config import IDGParams
+    from idg_tpu_torch.data import make_observation, make_perf_observation, make_w_observation
+    from idg_tpu_torch.models.reference import gridder_reference
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops import grid as tgrid
+    from idg_tpu_torch.ops import vadd as tvadd
+    from idg_tpu_torch.ops.api import _resolve
+    from idg_tpu_torch.ops.common import slice_staged, stage
+    from idg_tpu_torch.ops.cuda import build
+    from idg_tpu_torch.utils.compare import check_error
+
+    t_start = time.perf_counter()
+    lines = build.build_log.splitlines()
+    ptxas = {}
+    for i, line in enumerate(lines):
+        kernel = re.search(r"\d+gridder_kernelILi(\d+)ELb(\d)E", line)
+        if "Compiling entry" in line and kernel:
+            ptxas[kernel.groups()] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+    hgmma = {re.search(r"gridder_kernelILi(\d+)ELb(\d)E", name).groups(): count
+             for name, count in sass_counts(str(build.build()), r"\d+gridder_kernelILi",
+                                            "HGMMA").items()}
+    for key in sorted(set(ptxas) | set(hgmma)):
+        form = "fused" if key[1] == "1" else "non-fused"
+        phase("redesign", f"K1 N = {key[0]} {form}: {hgmma.get(key, 0)} HGMMA; ptxas "
+                          f"{ptxas.get(key, 'missing')}")
+    if len(hgmma) != 4 or not all(hgmma.values()):
+        raise RuntimeError(f"K1's instances do not all run on the tensor cores: {hgmma}")
+
+    # K1, both forms, against the f64 oracle on the correctness problem
+    params = IDGParams.correctness_defaults()
+    obs0, _ = make_observation(params)
+    params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+    params_c = dataclasses.replace(params, nr_channels=RESYNC_CHANNELS)
+    obs_c, _ = make_observation(params_c)
+    k = np.array(obs0.wavenumbers, copy=True)
+    k[-1] *= 1.05
+    obs_nu = dataclasses.replace(obs0, wavenumbers=k)
+    params_r = dataclasses.replace(params, nr_timesteps_subgrid=37, nr_channels=7)
+    obs_r, _ = make_observation(params_r)
+    for label, p, obs in (("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w),
+                          (f"C = {RESYNC_CHANNELS}", params_c, obs_c),
+                          ("non-uniform channels", params, obs_nu),
+                          ("ragged V = 37·7", params_r, obs_r)):
+        version, rank = _resolve("gridder", "cuda_v6", p, obs)
+        rank = rank or 2
+        md = obs.metadata
+        oyx = torch.as_tensor(tgrid.roll_offsets(md.coord_x, md.coord_y, p.grid_size,
+                                                 p.subgrid_size))
+        stg = stage(p, obs, "cuda")
+        kernels.reset_launch_counts()
+        sub = kernels.gridder_cuda_v6(p, stg, rank)
+        pieces = kernels.gridder_cuda_v6_pieces(p, stg, oyx.cuda(), rank)
+        torch.cuda.synchronize()
+        launched = {name: n for name, n in launch_counts().items() if n}
+        oracle = torch.from_numpy(gridder_reference(p, obs))
+        err = check_error(sub, oracle, verbose=False).mean_error
+        err_f = check_error(pieces, tgrid.pieces_from_subgrids(oracle, oyx),
+                            verbose=False).mean_error
+        ok = (version == "cuda_v6" and max(err, err_f) <= K1_ORACLE_GATE
+              and (rank >= 4) == ("rank 4" in label)
+              and launched == {"gridder_cuda_v6": 1, "gridder_cuda_v6_pieces": 1})
+        phase("redesign", f"K1 {label}: resolved ({version}, {rank}), mean_error {err:.3e}, "
+                          f"fused {err_f:.3e} (gate {K1_ORACLE_GATE:g}), launches {launched} "
+                          f"{'PASSED' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"K1 {label} failed")
+
+    # K1 against its plain version on the first 512 default subgrids, both
+    # forms, then both timed on the full problem
+    params = IDGParams.from_env()
+    obs = make_perf_observation(params)
+    md = obs.metadata
+    stg = stage(params, obs, "cuda")
+    oyx = torch.as_tensor(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size,
+                                             params.subgrid_size), device="cuda")
+    small = slice_staged(stg, 0, COMPARE_SUBGRIDS)
+    for name, kernel, plain, small_args, full_args in (
+            ("gridder_cuda_v6", kernels.gridder_cuda_v6, kernels.gridder_plain,
+             (params, small, 2), (params, stg, 2)),
+            ("gridder_cuda_v6_pieces", kernels.gridder_cuda_v6_pieces,
+             kernels.gridder_v6_pieces_plain, (params, small, oyx[:COMPARE_SUBGRIDS], 2),
+             (params, stg, oyx, 2))):
+        got = kernel(*small_args)
+        torch.cuda.synchronize()
+        err = check_error(got, plain(*small_args), verbose=False).mean_error
+        ms = device_ms(kernel, *full_args, harness=timing)
+        phase("redesign", f"{name} vs plain on {COMPARE_SUBGRIDS} subgrids: mean_error "
+                          f"{err:.3e} (gate {K1_PLAIN_GATE:g}); full problem {ms:.3f} ms "
+                          f"{'PASSED' if err <= K1_PLAIN_GATE else 'FAILED'}")
+        if err > K1_PLAIN_GATE:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+    del stg, small
+    torch.cuda.empty_cache()
+
+    # K10 exactly against torch.add: n = 2^28, then sizes off every chunk
+    # boundary (2048 floats a chunk), aligned and misaligned
+    for n, offset in ((tvadd.DEFAULT_N, 0), (3, 0), (2048, 0), (2048 * 397 + 4, 0),
+                      (2048 * 397 + 5, 0), (2048 * 397 + 5, 1), (tvadd.DEFAULT_N - 1, 2)):
+        x, y = tvadd.make_vadd_inputs(n + offset, "cuda")
+        x, y = x[offset:], y[offset:]
+        compare(f"vadd_cuda vs torch.add (n = {n}, offset {offset})", kernels.vadd_cuda(x, y),
+                torch.add(x, y), exact=True, tag="redesign")
+        del x, y
+    n = tvadd.DEFAULT_N
+    x, y = tvadd.make_vadd_inputs(n, "cuda")
+    k_ms = device_ms(kernels.vadd_cuda, x, y, harness=timing)
+    lib_ms = device_ms(torch.add, x, y, harness=timing)
+    phase("redesign", f"vadd_cuda (n = {n}): {k_ms:.3f} ms ({tvadd.vadd_gbytes(n) / k_ms:.3f} "
+                      f"TB/s), torch.add {lib_ms:.3f} ms")
+    del x, y
+    torch.cuda.empty_cache()
+    phase("redesign", f"phase 12: {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1052,6 +1216,7 @@ def main() -> int:
     from idg_tpu_torch.ops.cuda import build
     from idg_tpu_torch.utils.compare import check_error
     from idg_tpu_torch.utils.costs import workload_costs
+    from idg_tpu_torch.utils import roofline
     from idg_tpu_torch.utils.printing import nvidia_smi_power_line
 
     # 1. device
@@ -1119,7 +1284,8 @@ def main() -> int:
          "idg_tpu_torch/csrc/degridder.cu", "idg_tpu/ops/pallas/degridder.py:901"),
     )
     rows = []
-    kernels_vs_plain(rows, "compare", cases, timing, plain_timing, model_flops(params))
+    kernels_vs_plain(rows, "compare", cases, timing, plain_timing, model_flops(params),
+                     unit=lambda name: roofline.unit(*name.split("_", 1)))
     del stg, small, sub_t
     torch.cuda.empty_cache()
 
@@ -1159,6 +1325,9 @@ def main() -> int:
 
     # 11. the pol-stacked degridder: K9d
     polstack_phase(rows, timing)
+
+    # 12. the redesigned kernels: K1 on the TF32 tensor cores, K10
+    redesign_phase(rows, timing)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,52 +1,182 @@
-// Gridder: visibilities -> subgrids c64[S, P, N, N], FP32 on the CUDA cores.
+// K1, gridder cuda_v6: visibilities -> subgrids c64[S, P, N, N], the
+// separable product on the TF32 tensor cores (`wgmma`).
 //
 // Replaces idg_tpu/ops/pallas/gridder.py:_kernel_sep_recur_batch (launcher
 // _gridder_sep_recur_batch_run, registered as gridder pallas_v6), non-fused
 // form, and with kFuse the fused grid-stage epilogue (the `fuse` branch,
 // gridder.py:942-992, registered as gridder_pallas_v6_pieces). It computes
 // the same separable-phasor function:
-//   pixel[y,x,p] = Σ_v vis[v,p] · Φx[v,x] · Φy[v,y] · Σ_{r<w_rank} (iμ_v·n[y,x])^r / r!
+//   pixel[y,x,p] = Σ_r n[y,x]^r · Σ_v lhs_r[v,y] · W[v,x,p]
+//   lhs_r = Φy ⊛ (iμ)^r / r!,  W = Φx ⊛ vis
 //   Φx[v,x] = e^{i(po_x[x] − l[x]·u_t·k_c)},  Φy[v,y] = e^{i(po_y[y] − m[y]·v_t·k_c)}
 // then the Jones correction A1ᴴ·P·A2 and the spheroidal taper.
 //
-// What bounds it on an H100: FP32 arithmetic. Per pixel and visibility it
-// does one complex multiply for Φx·Φy, the Horner Taylor of the w term and
-// four complex multiply-adds (~22 FMAs); the inputs of one subgrid
-// (2048 visibilities × 32 B) are read once, so the kernel does ~1e3 FLOP per
-// byte of device memory, far above the card's FP32 ridge.
+// What bounds it on an H100: the product, 4 real GEMMs of 2N × V × 2NP per
+// subgrid and pass. At the default problem (rank 2, N = 32, V = 2048) it is
+// 4 TF32 passes × 67.1 MFLOP × 24,500 subgrids = 6.6e12 FLOP, 13.3 ms at
+// 495 TFLOP/s; around it ~5.8 M CUDA-core instructions a subgrid (131,072
+// exact sincosf, W, the lhs and their split), ~4 ms if alone. Its bytes
+// (2.4 GB) take 0.72 ms. The reference's operation model (1.779e12 FLOP a
+// pass) over the TF32 peak gives 3.594 ms, fused 3.699.
 //
-// Design: one block per subgrid (S = 24,500 blocks fill 132 SMs many times
-// over), 256 threads, each owning N²/256 pixels that share one column x.
-// Visibilities are walked in tiles of kTile: the block computes the tile's
-// Φx and Φy planes once into shared memory (O(V·N) sincosf per subgrid
-// instead of O(V·N²)), then every thread accumulates its pixels in
-// registers, reading Φy and the visibility as warp-wide broadcasts. Phases
-// use accurate sincosf (no fast math). No channel recurrence: the kernel
-// makes no assumption on the channel spacing. The TPU kernel's bf16 hi/lo
-// split products, step batching and scratch double-buffering were answers
-// to the TPU's bf16-only matrix unit and VMEM and have no counterpart here.
+// Design:
+//  - The product transposed, outᵀ[2NP × 2N] = Wᵀ · lhs_r, so the 64-row
+//    wgmma operand is W (256 rows at N = 32, 128 at N = 16): both subgrid
+//    sizes fill whole warpgroups, and W, formed once a tile, serves every
+//    rank. Each warpgroup owns a 64-row slab (8 (x, p) pairs per warp, real
+//    rows then imaginary rows), so a thread's accumulators hold all four real
+//    products of its complex outputs: W rows (q, re|im), q = p·N + x; lhs
+//    rows (re|im)·N + y.
+//  - TF32 in three passes: x = hi + lo, hi = tf32(x), lo = tf32(x − hi),
+//    and lo·hi + hi·lo + hi·hi into float32 (~22 bits of each operand, so
+//    gridder_plain, float32 "highest", stays the reference). Rank 1 at
+//    rank ≤ 2 takes hi·hi alone (|μ·n| < 2.5e-3 of the signal,
+//    ops/precision.py); escalated ranks take three passes.
+//  - The tensor cores' float32 accumulation truncates, so each tile's sum
+//    (32 visibilities) is folded into a running sum in round-to-nearest
+//    FADDs, with the rank combine Σ_r n^r folded in: the running sum is one
+//    complex value per output pixel and pol (8 or 4 a thread, in
+//    registers), whatever the rank. One rank's accumulators (32 or 16
+//    registers) are live at a time: ranks are issued, waited for and folded
+//    one after another.
+//  - Warp specialization, so that the formation of the next tile overlaps
+//    the products of this one: one block per subgrid holds the consumer
+//    warpgroups, one per slab, which issue the products and fold them, and
+//    after them N·8 producer threads, which form the tiles (768 threads at
+//    N = 32, 384 at N = 16; 80 registers, a 24 B spill at N = 32). A
+//    producer owns one x and one y and 4 visibilities: two exact sincosf
+//    each (no fast math), W = Φx · vis for the four pols, the lhs of every
+//    rank, and their split. Warps that issued wgmma and formed tiles in
+//    turn overlapped the two little: a warp stalls on the tensor cores'
+//    queue before it reaches its share of the formation. The roles come
+//    through a warp shuffle and the formation branches on nothing else of
+//    the thread (selects mask the ragged tile): ptxas serializes wgmma
+//    around a divergent path. One barrier a tile hands the stages over:
+//    two stages fit 227 KB of shared memory up to rank 3 at N = 32; above
+//    that the formation follows the products. The visibilities and μ
+//    arrive by cp.async into a two-slot ring a tile ahead of the
+//    formation; uvw and k (< 2 KB a subgrid) are read through L1.
+//  - Operands in shared memory as unswizzled 8×16 B core matrices
+//    (wgmma.cuh), written by 16-byte stores with consecutive lanes on
+//    consecutive rows, so neither the formation nor the tensor cores meet
+//    bank conflicts.
+//  - Against the 13.3 ms product floor it runs at about 30% of the TF32
+//    rate (PERF.md): the formation's instructions on a quarter of the
+//    block's warps, and the shared-memory traffic of both operands, read by
+//    every pass, bind it, not the tensor cores.
 //
-// Fused epilogue (kFuse): after the Jones/taper epilogue each thread keeps
-// its pixels in registers; per pol, the tile goes to shared memory, K3
-// (common.cuh:dft2_tile) applies the inverse folded-shift DFT, and the store
-// rolls it by (oy, ox) = oyx[s] as an exact index permutation,
-// piece[(y+oy)%N][(x+ox)%N] = idft[y][x]. The TPU kernel put the roll on the
-// tile as Fourier phases for its layout's sake (grid.py:389-397); an index
-// on the store is exact and free here. The tile and K3's workspace reuse the
-// Φ tiles, idle after the main loop, so shared memory and occupancy stay
-// those of the non-fused kernel.
+// Fused epilogue (kFuse): after the Jones/taper epilogue the tile sits in
+// shared memory; per pol, K3 (common.cuh:dft2_tile) applies the inverse
+// folded-shift DFT, and the store rolls it by (oy, ox) = oyx[s] as an exact
+// index permutation, piece[(y+oy)%N][(x+ox)%N] = idft[y][x]. The TPU kernel
+// put the roll on the tile as Fourier phases for its layout's sake
+// (grid.py:389-397); an index on the store is exact and free here.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;  // visibilities staged per pass: 2·64·N·8 B of Φ
+using idg::kPols;
+
+constexpr int kKT = 32;                  // visibilities a tile: four k8 steps
+constexpr int kKC = kKT / 4;             // 4-wide K chunks of an operand row
+constexpr uint32_t kLBO = 128;           // the next K chunk's core matrix
+constexpr uint32_t kSBO = kKC * 128;     // the next 8-row group's
+constexpr int kRawBytes = kKT * kPols * (int)sizeof(float2) + kKT * (int)sizeof(float);
+
+template <int N>
+struct Tile {
+  static constexpr int kRowsW = 2 * N * kPols;   // A = Wᵀ: (q = p·N + x, re | im)
+  static constexpr int kRowsL = 2 * N;           // B = lhs_r: (re | im)·N + y
+  static constexpr int kGroups = kRowsW / 64;    // warpgroups, one 64-row slab each
+  static constexpr int kConsumers = 128 * kGroups;  // the products and the fold
+  static constexpr int kProducers = N * kKC;        // the formation: one (a, K chunk) each
+  static constexpr int kThreads = kConsumers + kProducers;
+  static constexpr int kMinBlocks = N == 16 ? 2 : 1;
+  static constexpr int kAcc = 64 * kRowsL / 128;  // accumulator floats a thread, a rank
+  static constexpr int kOut = N / 4;              // complex outputs a thread
+  static constexpr int kBytesW = kRowsW * kKT * 4;  // one of hi, lo
+  static constexpr int kBytesL = kRowsL * kKT * 4;  // one of hi, lo, a rank
+  // a stage: W hi, W lo, then the lhs hi of every rank, then their lo
+  __host__ __device__ static constexpr size_t stage_bytes(int rank) {
+    return 2 * (size_t)kBytesW + 2 * (size_t)rank * kBytesL;
+  }
+  // the epilogue's pixels [P][N][N], K3's row pass and its factors
+  static constexpr size_t kEpilogueBytes = (size_t)(kPols + 2) * N * N * sizeof(float2);
+  static_assert(kEpilogueBytes <= 2 * (size_t)kBytesW, "the epilogue fits a stage");
+};
+
+// Whether rank r takes three TF32 passes (else hi·hi alone).
+__device__ __forceinline__ bool three_passes(int r, int w_rank) {
+  return r == 0 || w_rank > 2;
+}
+
+// One rank's products of one k8 step into acc.
+template <bool kThree, int K>
+__device__ __forceinline__ void rank_step(float (&acc)[K], int first, uint64_t a_hi,
+                                          uint64_t a_lo, uint64_t b_hi, uint64_t b_lo) {
+  if constexpr (kThree) {
+    idg::wgmma_tf32(acc, a_lo, b_hi, first ? 0 : 1);
+    idg::wgmma_tf32(acc, a_hi, b_lo, 1);
+    idg::wgmma_tf32(acc, a_hi, b_hi, 1);
+  } else {
+    idg::wgmma_tf32(acc, a_hi, b_hi, first ? 0 : 1);
+  }
+}
+
+// Rank r's products over one tile of the stage at `stage`, this
+// warpgroup's slab, into acc (three TF32 passes, or hi·hi alone), inside the
+// caller's commit group.
+template <int N, bool kThree>
+__device__ __forceinline__ void mma_rank(const unsigned char* stage, int slab, int r,
+                                         int w_rank, float (&acc)[Tile<N>::kAcc]) {
+  using TL = Tile<N>;
+  const unsigned char* w_hi = stage + slab * 8 * kSBO;
+  const unsigned char* l_hi = stage + 2 * TL::kBytesW + (size_t)r * TL::kBytesL;
+#pragma unroll
+  for (int ks = 0; ks < kKT / 8; ++ks) {
+    const int off = ks * 2 * 128;   // two K chunks a k8 step
+    rank_step<kThree>(acc, ks == 0, idg::smem_desc(w_hi + off, kLBO, kSBO),
+                      idg::smem_desc(w_hi + TL::kBytesW + off, kLBO, kSBO),
+                      idg::smem_desc(l_hi + off, kLBO, kSBO),
+                      idg::smem_desc(l_hi + (size_t)w_rank * TL::kBytesL + off, kLBO, kSBO));
+  }
+}
+
+// Wait for this warpgroup's products of rank r and fold them into the
+// running sum: out = (WreLre − WimLim) + i(WreLim + WimLre), weighted by
+// n^r. The thread's outputs: pixel (y, x) of pol p, q = p·N + x = tid / 4,
+// y = 8j + 2(tid % 4) + e, in sum[2j + e].
+template <int N>
+__device__ __forceinline__ void fold(int r, const float* __restrict__ n, int x, int t4,
+                                     float (&acc)[Tile<N>::kAcc],
+                                     float2 (&sum)[Tile<N>::kOut]) {
+  constexpr int J = N / 8;   // 8-column groups of the real lhs rows
+  idg::wgmma_wait<0>();
+  idg::fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = 2 * j + e;
+      float w = 1.0f;
+      if (r > 0) {
+        const float nn = __ldg(n + (8 * j + 2 * t4 + e) * N + x);
+        for (int q = 0; q < r; ++q) w *= nn;
+      }
+      const float re = acc[4 * j + e] - acc[4 * (j + J) + 2 + e];
+      const float im = acc[4 * (j + J) + e] + acc[4 * j + 2 + e];
+      sum[o].x = fmaf(w, re, sum[o].x);
+      sum[o].y = fmaf(w, im, sum[o].y);
+    }
+  }
+}
 
 template <int N, bool kFuse>
-__global__ void __launch_bounds__(kThreads) gridder_kernel(
+__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float2* __restrict__ vis,         // [S, T, C, P]
     const float* __restrict__ mu,           // [S, T, C]
@@ -64,115 +194,237 @@ __global__ void __launch_bounds__(kThreads) gridder_kernel(
     const int* __restrict__ oyx,            // [S, 2] (kFuse only)
     const float2* __restrict__ wf,          // [N, N] inverse DFT factors (kFuse only)
     float2* __restrict__ out,               // [S, P, N, N] subgrids, or pieces with kFuse
-    int T, int C, int nr_stations, int w_rank) {
+    int T, int C, int nr_stations, int w_rank, int stages) {
   using namespace idg;
-  static_assert((N * N) % kThreads == 0, "pixels must split evenly");
-  static_assert(kThreads % N == 0, "a thread's pixels share one column");
-  static_assert(kTile >= 2 * N, "the fused tile and K3's workspace fit in s_phx");
-  constexpr int kPix = N * N / kThreads;
+  using TL = Tile<N>;
+  constexpr int kThreads = TL::kThreads;
+  constexpr int kCons = TL::kConsumers;
+  constexpr int kProd = TL::kProducers;
 
-  __shared__ float2 s_phx[kTile][N];
-  __shared__ float2 s_phy[kTile][N];
-  __shared__ float2 s_vis[kTile][kPols];
-  __shared__ float s_mu[kTile];
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t stage_bytes = TL::stage_bytes(w_rank);
+  unsigned char* raw = smem + stages * stage_bytes;   // two slots: vis [kKT][P], μ [kKT]
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
   const int V = T * C;
+  const int nt = (V + kKT - 1) / kKT;
   const float* uvw_s = uvw + (size_t)s * T * 3;
   const float2* vis_s = vis + (size_t)s * V * kPols;
   const float* mu_s = mu + (size_t)s * V;
-  const float* pox_s = po_x + (size_t)s * N;
-  const float* poy_s = po_y + (size_t)s * N;
 
-  // pixel q = tid + i·kThreads → (y, x) = (q / N, q % N); x is the same for
-  // every pixel of this thread
-  const int x = tid % N;
-  float n_pix[kPix];
-  float2 acc[kPix][kPols];
-#pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    n_pix[i] = n[tid + i * kThreads];
-#pragma unroll
-    for (int p = 0; p < kPols; ++p) acc[i][p] = make_float2(0.0f, 0.0f);
+  // Roles: the warpgroups first issue the products and fold them (the
+  // consumers); the warps after them form the tiles (the producers), so no
+  // warp that issues a wgmma has the formation in its way. The role comes
+  // through a warp shuffle, so the compiler knows it is uniform in a warp:
+  // ptxas serializes wgmma around a divergent path (C7520). A producer owns
+  // one row position a (x for W, y for the lhs) and one K chunk.
+  const bool producer = __shfl_sync(0xffffffffu, tid >= kCons ? 1 : 0, 0) != 0;
+  const int ptid = tid - kCons;
+  const int a = ptid % N, kc = ptid / N;
+  float pox = 0.0f, lx = 0.0f, poy = 0.0f, my = 0.0f;
+  if (producer) {
+    pox = po_x[(size_t)s * N + a];
+    lx = l[a];
+    poy = po_y[(size_t)s * N + a];
+    my = m[a];
   }
 
-  for (int v0 = 0; v0 < V; v0 += kTile) {
-    const int nv = min(kTile, V - v0);
-    for (int e = tid; e < nv * N; e += kThreads) {
-      const int j = e / N, a = e % N;
-      const int v = v0 + j;
-      const int t = v / C, c = v % C;
-      const float kc = k[c];
-      const float uk = uvw_s[t * 3 + 0] * kc;
-      const float vk = uvw_s[t * 3 + 1] * kc;
-      float sx, cx, sy, cy;
-      sincosf(pox_s[a] - l[a] * uk, &sx, &cx);
-      sincosf(poy_s[a] - m[a] * vk, &sy, &cy);
-      s_phx[j][a] = make_float2(cx, sx);
-      s_phy[j][a] = make_float2(cy, sy);
-    }
-    for (int e = tid; e < nv * kPols; e += kThreads) {
-      s_vis[e / kPols][e % kPols] = vis_s[(size_t)v0 * kPols + e];
-    }
-    for (int e = tid; e < nv; e += kThreads) s_mu[e] = mu_s[v0 + e];
-    __syncthreads();
+  auto stage_raw = [&](int tile, int slot) {
+    const int v0 = tile * kKT, nv = min(kKT, V - v0);
+    unsigned char* dst = raw + slot * kRawBytes;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(vis_s + (size_t)v0 * kPols);
+    for (int e = ptid; e < nv * 2; e += kProd) cp_async16(dst + e * 16, src + e * 16);
+    float* dmu = reinterpret_cast<float*>(dst + kKT * kPols * sizeof(float2));
+    for (int e = ptid; e < nv; e += kProd) cp_async4(dmu + e, mu_s + v0 + e);
+    cp_async_commit();
+  };
 
-    for (int j = 0; j < nv; ++j) {
-      const float2 phx = s_phx[j][x];
-      const float mu_j = s_mu[j];
-      float2 vp[kPols];
+  // One producer's share of a tile: Φx and Φy of its a at its 4
+  // visibilities (0 past V, by selects), W = Φx · vis for the 4 pols, rows
+  // (q = p·N + a, re | im), and the lhs of every rank, Φy · (iμ)^r/r!, rows
+  // (re | im)·N + a.
+  auto form = [&](int tile, int slot, int buf) {
+    const int v0 = tile * kKT, nv = min(kKT, V - v0);
+    float* base = reinterpret_cast<float*>(smem + buf * stage_bytes);
+    const float2* rvis = reinterpret_cast<const float2*>(raw + slot * kRawBytes);
+    const float* rmu = reinterpret_cast<const float*>(rvis + kKT * kPols);
+    float2 phx[4], phy[4], coef[4];
+    float mu_i[4];
+    bool live[4];
+    int t = (v0 + kc * 4) / C, c = v0 + kc * 4 - t * C;
 #pragma unroll
-      for (int p = 0; p < kPols; ++p) vp[p] = s_vis[j][p];
+    for (int i = 0; i < 4; ++i) {
+      live[i] = kc * 4 + i < nv;
+      const float* uvw_t = uvw_s + min(t, T - 1) * 3;
+      const float kv = __ldg(k + c);
+      float sn, cs;
+      sincosf(pox - lx * (__ldg(uvw_t) * kv), &sn, &cs);
+      phx[i] = live[i] ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
+      sincosf(poy - my * (__ldg(uvw_t + 1) * kv), &sn, &cs);
+      phy[i] = live[i] ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
+      mu_i[i] = live[i] ? rmu[kc * 4 + i] : 0.0f;
+      coef[i] = make_float2(1.0f, 0.0f);
+      const bool wrap = ++c == C;
+      c = wrap ? 0 : c;
+      t += wrap;
+    }
+    float* w_hi = base;
+    float* w_lo = base + TL::kBytesW / 4;
 #pragma unroll
-      for (int i = 0; i < kPix; ++i) {
-        const int y = (tid + i * kThreads) / N;
-        float2 ph = cmul(phx, s_phy[j][y]);
-        ph = cmul(ph, taylor_expi(mu_j * n_pix[i], w_rank));
+    for (int p = 0; p < kPols; ++p) {
+      float rh[4], rl[4], ih[4], il[4];
 #pragma unroll
-        for (int p = 0; p < kPols; ++p) cmac(acc[i][p], vp[p], ph);
+      for (int i = 0; i < 4; ++i) {
+        const float2 w = cmul(phx[i], rvis[(kc * 4 + i) * kPols + p]);
+        split_tf32(w.x, rh[i], rl[i]);
+        split_tf32(w.y, ih[i], il[i]);
+        rh[i] = live[i] ? rh[i] : 0.0f;   // past V: zeros, whatever the stale slot held
+        rl[i] = live[i] ? rl[i] : 0.0f;
+        ih[i] = live[i] ? ih[i] : 0.0f;
+        il[i] = live[i] ? il[i] : 0.0f;
+      }
+      const int q = p * N + a, row = (q >> 3) * 16 + (q & 7);
+      const int re = core_index(row, kc * 4, kKC), im = core_index(row + 8, kc * 4, kKC);
+      *reinterpret_cast<float4*>(w_hi + re) = make_float4(rh[0], rh[1], rh[2], rh[3]);
+      *reinterpret_cast<float4*>(w_lo + re) = make_float4(rl[0], rl[1], rl[2], rl[3]);
+      *reinterpret_cast<float4*>(w_hi + im) = make_float4(ih[0], ih[1], ih[2], ih[3]);
+      *reinterpret_cast<float4*>(w_lo + im) = make_float4(il[0], il[1], il[2], il[3]);
+    }
+    float* l_hi = base + 2 * TL::kBytesW / 4;
+    float* l_lo = l_hi + (size_t)w_rank * TL::kBytesL / 4;
+    const int re = core_index(a, kc * 4, kKC), im = core_index(N + a, kc * 4, kKC);
+#pragma unroll
+    for (int r = 0; r < kMaxWRank; ++r) {
+      if (r < w_rank) {
+        float rh[4], rl[4], ih[4], il[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 lv = cmul(phy[i], coef[i]);
+          split_tf32(lv.x, rh[i], rl[i]);
+          split_tf32(lv.y, ih[i], il[i]);
+          // (iμ)^{r+1}/(r+1)! = (iμ)^r/r! · iμ/(r+1), by a constant
+          // reciprocal: a division would branch on the data
+          const float g = mu_i[i] * (1.0f / (r + 1));
+          coef[i] = make_float2(-coef[i].y * g, coef[i].x * g);
+        }
+        float* hi = l_hi + (size_t)r * TL::kBytesL / 4;
+        *reinterpret_cast<float4*>(hi + re) = make_float4(rh[0], rh[1], rh[2], rh[3]);
+        *reinterpret_cast<float4*>(hi + im) = make_float4(ih[0], ih[1], ih[2], ih[3]);
+        if (three_passes(r, w_rank)) {
+          float* lo = l_lo + (size_t)r * TL::kBytesL / 4;
+          *reinterpret_cast<float4*>(lo + re) = make_float4(rl[0], rl[1], rl[2], rl[3]);
+          *reinterpret_cast<float4*>(lo + im) = make_float4(il[0], il[1], il[2], il[3]);
+        }
+      }
+    }
+  };
+
+  // the consumer's outputs (fold) and its warpgroup's slab
+  const int q_out = tid >> 2, t4 = tid & 3;
+  const int x_out = q_out % N, p_out = q_out / N;
+  const int slab = tid / 128;
+  float acc[TL::kAcc];
+#pragma unroll
+  for (int i = 0; i < TL::kAcc; ++i) acc[i] = 0.0f;
+  float2 sum[TL::kOut];
+#pragma unroll
+  for (int o = 0; o < TL::kOut; ++o) sum[o] = make_float2(0.0f, 0.0f);
+
+  // prologue: the raw data of tiles 0 and 1, then tile 0 formed in stage 0
+  if (producer) {
+    stage_raw(0, 0);
+    if (nt > 1) stage_raw(1, 1);
+    cp_async_wait_all();
+  }
+  __syncthreads();
+  if (producer) {
+    form(0, 0, 0);
+    fence_async_smem();
+  }
+  __syncthreads();
+
+  // Tile j: the consumers multiply and fold it while the producers form
+  // tile j + 1 in the other stage (after it, with one stage)
+  for (int j = 0; j < nt; ++j) {
+    if (producer) {
+      // raw slot j & 1 held tile j's data, formed before the last barrier
+      if (j + 2 < nt) stage_raw(j + 2, j & 1);
+      if (stages == 2 && j + 1 < nt) form(j + 1, (j + 1) & 1, (j + 1) & 1);
+      cp_async_wait_all();
+      fence_async_smem();
+    } else {
+      const unsigned char* stage = smem + (j % stages) * stage_bytes;
+      for (int r = 0; r < w_rank; ++r) {
+        fence_regs(acc);
+        wgmma_fence();
+        if (three_passes(r, w_rank)) {
+          mma_rank<N, true>(stage, slab, r, w_rank, acc);
+        } else {
+          mma_rank<N, false>(stage, slab, r, w_rank, acc);
+        }
+        wgmma_commit();
+        fold<N>(r, n, x_out, t4, acc, sum);
       }
     }
     __syncthreads();
+    if (stages == 1 && j + 1 < nt) {
+      if (producer) {
+        form(j + 1, (j + 1) & 1, 0);
+        fence_async_smem();
+      }
+      __syncthreads();
+    }
   }
 
-  // epilogue: A1ᴴ · P · A2 (math.hpp:64-77), then the taper
+  // epilogue: the running sums into shared memory as [P][N][N], then per
+  // pixel A1ᴴ · P · A2 (math.hpp:64-77) and the taper
+  float2* s_pix = reinterpret_cast<float2*>(smem);
+  if (!producer) {
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int y = 8 * jj + 2 * t4 + e;
+        s_pix[(p_out * N + y) * N + x_out] = sum[2 * jj + e];
+      }
+    }
+  }
+  __syncthreads();
   const size_t nn = (size_t)N * N;
   const size_t at1 = ((size_t)aterm_index[s] * nr_stations + station1[s]) * nn;
   const size_t at2 = ((size_t)aterm_index[s] * nr_stations + station2[s]) * nn;
+  for (int q = tid; q < N * N; q += kThreads) {
+    float2 px[kPols], o[kPols];
 #pragma unroll
-  for (int i = 0; i < kPix; ++i) {
-    const int q = tid + i * kThreads;
-    float2 o[kPols];
-    jones_gridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, acc[i], o);
+    for (int p = 0; p < kPols; ++p) px[p] = s_pix[p * nn + q];
+    jones_gridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, px, o);
     const float taper = sph[q];
 #pragma unroll
     for (int p = 0; p < kPols; ++p) {
+      const float2 v = make_float2(o[p].x * taper, o[p].y * taper);
       if constexpr (kFuse) {
-        acc[i][p] = make_float2(o[p].x * taper, o[p].y * taper);
+        s_pix[p * nn + q] = v;
       } else {
-        out[((size_t)s * kPols + p) * nn + q] = make_float2(o[p].x * taper, o[p].y * taper);
+        out[((size_t)s * kPols + p) * nn + q] = v;
       }
     }
   }
 
   if constexpr (kFuse) {
-    // the main loop ended on a barrier, so the Φ tiles are free
-    float2* s_x = &s_phx[0][0];    // [N·N] one pol of the tile
-    float2* s_tmp = s_x + N * N;   // [N·N] K3's row pass
-    float2* s_wf = &s_phy[0][0];   // [N·N] factors
+    float2* s_tmp = s_pix + kPols * nn;   // [N·N] K3's row pass
+    float2* s_wf = s_tmp + nn;            // [N·N] factors
     for (int e = tid; e < N * N; e += kThreads) s_wf[e] = wf[e];
+    __syncthreads();
     // the roll is taken mod N, as the plain version takes it: no index leaves the tile
     const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
 #pragma unroll
     for (int p = 0; p < kPols; ++p) {
-#pragma unroll
-      for (int i = 0; i < kPix; ++i) s_x[tid + i * kThreads] = acc[i][p];
-      __syncthreads();
       float2* out_p = out + ((size_t)s * kPols + p) * nn;
-      dft2_tile<N, kThreads>(s_x, s_tmp, s_wf, [&](int y, int x, float2 v) {
+      dft2_tile<N, kThreads>(s_pix + p * nn, s_tmp, s_wf, [&](int y, int x, float2 v) {
         out_p[((y + oy) % N) * N + (x + ox) % N] = v;
       });
+      __syncthreads();   // the next pol rewrites K3's row pass
     }
   }
 }
@@ -184,9 +436,23 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
                    const int* aterm_index, const int* station1, const int* station2,
                    const int* oyx, const float2* wf, float2* out, int S, int T, int C,
                    int nr_stations, int w_rank, cudaStream_t stream) {
-  gridder_kernel<N, kFuse><<<S, kThreads, 0, stream>>>(
+  using TL = Tile<N>;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  // two stages where they fit (up to rank 3 at N = 32), else one
+  const size_t stage = TL::stage_bytes(w_rank), raw = 2 * (size_t)kRawBytes;
+  const int stages = 2 * stage + raw <= (size_t)optin ? 2 : 1;
+  const size_t bytes = stages * stage + raw;
+  err = cudaFuncSetAttribute(gridder_kernel<N, kFuse>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  gridder_kernel<N, kFuse><<<S, TL::kThreads, bytes, stream>>>(
       uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1,
-      station2, oyx, wf, out, T, C, nr_stations, w_rank);
+      station2, oyx, wf, out, T, C, nr_stations, w_rank, stages);
   return cudaGetLastError();
 }
 

@@ -15,10 +15,12 @@
 // What bounds it on an H100: FP32 arithmetic. Per pixel and visibility the
 // full-phase form does one accurate sincosf (~20-30 instructions at these
 // arguments) and four complex multiply-adds (16 FMAs); kRecur replaces the
-// sincosf by one complex multiply, with two sincosf per (t, pixel) for the
-// first phasor and the step e^{−i·pi·Δk}, Δk = k[1] − k[0]. No resync, as in
-// JAX: the recurrence assumes uniform channel spacing (the API guard falls
-// back to the full-phase form otherwise).
+// sincosf by one complex multiply per channel, stepping by e^{−i·pi·Δk},
+// Δk = k[1] − k[0] (one sincosf per (t, pixel)), and restarts from an exact
+// phasor every kChanGroup channels, as K9a does: JAX's pallas_v2 never
+// restarts and drifts past the 1e-5 gate at C = 256. The restarts cost one
+// sincosf per (t, pixel) and group. The recurrence assumes uniform channel
+// spacing (the API guard falls back to the full-phase form otherwise).
 //
 // Design: one block per subgrid, 256 threads, each owning N²/256 pixels with
 // their four complex pol accumulators in registers. The block stages the
@@ -35,6 +37,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr size_t kTileBytes = 32 * 1024;  // shared visibilities per tile of timesteps
+constexpr int kChanGroup = 8;  // exact restarts of the recurrence (ops/cuda/gridder_direct.py)
 
 template <int N, bool kRecur>
 __global__ void __launch_bounds__(kThreads) gridder_direct_kernel(
@@ -68,7 +71,6 @@ __global__ void __launch_bounds__(kThreads) gridder_direct_kernel(
   const float* uvw_s = uvw + (size_t)s * T * 3;
   const float2* vis_s = vis + (size_t)s * T * C * kPols;
   for (int c = tid; c < C; c += kThreads) s_k[c] = k[c];
-  const float k0 = k[0];
   const float dk = C > 1 ? k[1] - k[0] : 0.0f;
 
   // pixel q = tid + i·kThreads → (y, x) = (q / N, q % N)
@@ -104,20 +106,28 @@ __global__ void __launch_bounds__(kThreads) gridder_direct_kernel(
 #pragma unroll
         for (int i = 0; i < kPix; ++i) {
           float sn, cs;
-          sincosf(po_p[i] - pi[i] * k0, &sn, &cs);
-          ph[i] = make_float2(cs, sn);
           sincosf(-(pi[i] * dk), &sn, &cs);
           d[i] = make_float2(cs, sn);
         }
-        for (int c = 0; c < C; ++c) {
-          const float4 va = vis_j[2 * c], vb = vis_j[2 * c + 1];
-          const float2 vp[kPols] = {make_float2(va.x, va.y), make_float2(va.z, va.w),
-                                    make_float2(vb.x, vb.y), make_float2(vb.z, vb.w)};
+        for (int c0 = 0; c0 < C; c0 += kChanGroup) {
+          // an exact phasor at each group's first channel: no drift
 #pragma unroll
           for (int i = 0; i < kPix; ++i) {
+            float sn, cs;
+            sincosf(po_p[i] - pi[i] * s_k[c0], &sn, &cs);
+            ph[i] = make_float2(cs, sn);
+          }
+          const int c1 = min(c0 + kChanGroup, C);
+          for (int c = c0; c < c1; ++c) {
+            const float4 va = vis_j[2 * c], vb = vis_j[2 * c + 1];
+            const float2 vp[kPols] = {make_float2(va.x, va.y), make_float2(va.z, va.w),
+                                      make_float2(vb.x, vb.y), make_float2(vb.z, vb.w)};
 #pragma unroll
-            for (int p = 0; p < kPols; ++p) cmac(acc[i][p], vp[p], ph[i]);
-            ph[i] = cmul(ph[i], d[i]);
+            for (int i = 0; i < kPix; ++i) {
+#pragma unroll
+              for (int p = 0; p < kPols; ++p) cmac(acc[i][p], vp[p], ph[i]);
+              ph[i] = cmul(ph[i], d[i]);
+            }
           }
         }
       } else {

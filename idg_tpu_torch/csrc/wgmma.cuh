@@ -1,0 +1,131 @@
+// Hopper helpers of the TF32 tensor-core gridder (gridder.cu): the TF32
+// split of a float32 value, shared-memory matrix descriptors, `wgmma` on
+// TF32 operands with its fences, and `cp.async` copies into shared memory.
+//
+// Operand layout (both operands K-major, the only layout TF32 `wgmma`
+// takes; no swizzle): a [rows][K] tile is stored as 8×16 B core matrices,
+// each 8 rows × 4 consecutive K values, 128 contiguous bytes. The core
+// matrix of row group g and 4-wide K chunk c sits at (g·kc + c)·128 bytes,
+// kc = K / 4, so a descriptor takes LBO = 128 (the next K chunk) and
+// SBO = kc·128 (the next row group), and one k8 step spans two chunks.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace idg {
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+// from zero, in one instruction: ops/precision.py:round_tf32 rounds the
+// same way, and the tensor cores read the value exactly.
+__device__ __forceinline__ float tf32_rn(float x) {
+  uint32_t b;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(b) : "f"(x));
+  return __uint_as_float(b);
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - hi);
+}
+
+// Float index of (row, k) in a core-matrix tile of kc 4-wide K chunks.
+__device__ __forceinline__ int core_index(int row, int k, int kc) {
+  return (((row >> 3) * kc + (k >> 2)) * 8 + (row & 7)) * 4 + (k & 3);
+}
+
+// The wgmma descriptor of a K-major, unswizzled tile at p.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// Order this thread's generic-proxy shared-memory writes before the async
+// proxy (wgmma, bulk copies) reads them; a barrier must follow.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous wgmma's issue or wait.
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a · b over one k8 step, D 64×32 float32 (16 registers a thread).
+// Ownership, warp w of the warpgroup, g = lane / 4, t = lane % 4:
+//   d[4j + e] = D[16w + g][8j + 2t + e], d[4j + 2 + e] = D[16w + g + 8][8j + 2t + e]
+// accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same on D 64×64 (32 registers a thread).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Asynchronous copies of 16 and 4 bytes, global → shared.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+}  // namespace idg

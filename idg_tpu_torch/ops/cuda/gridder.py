@@ -1,7 +1,9 @@
-"""Gridder `cuda_v6`: the hand-written CUDA kernel (csrc/gridder.cu) and
-its plain PyTorch version, in two forms: uv subgrids (`gridder_cuda_v6`)
-and, with the fused grid-stage epilogue, block-rolled image-domain pieces
-(`gridder_cuda_v6_pieces`).
+"""Gridder `cuda_v6`: the hand-written CUDA kernel K1 (csrc/gridder.cu, the
+separable product on the TF32 tensor cores in three passes, precision mode
+"3xtf32" of ops/precision.py) and its plain PyTorch version (float32
+throughout, the kernel's reference), in two forms: uv subgrids
+(`gridder_cuda_v6`) and, with the fused grid-stage epilogue, block-rolled
+image-domain pieces (`gridder_cuda_v6_pieces`).
 
 Each wrapper dispatches on the device of the staging it is given: a CPU
 staging runs the plain version, a CUDA staging launches the kernel (or
@@ -145,8 +147,9 @@ def ptr(t: torch.Tensor) -> int:
 
 @register(
     "gridder", "cuda_v6",
-    "CUDA C++ FP32 separable-phasor gridder (one block per subgrid, exact "
-    "per-channel sincos, rank-w Taylor of e^{iμn}); counterpart of pallas_v6",
+    "CUDA C++ separable-phasor gridder, the product on the TF32 tensor cores "
+    "(wgmma, three passes; exact per-channel sincos, rank-w Taylor of e^{iμn}); "
+    "counterpart of pallas_v6",
     family="cuda", uniform_channels=False,
 )
 def gridder_cuda_v6(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):

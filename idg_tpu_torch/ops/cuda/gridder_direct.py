@@ -8,9 +8,11 @@ at any w:
   po = po_x[x] + po_y[y] + w_off·n[y,x]
   pix[y,x,p] = Σ_{t,c} vis[t,c,p] · e^{i·phase}
 then Jones A1ᴴ·P·A2 and the taper. `cuda_v1` evaluates every phasor with an
-exact sincos. `cuda_v2` takes two per (t, pixel) and advances the phasor over
-the channels by repeated complex multiplies with e^{−i·pi·Δk}, Δk = k[1] − k[0],
-with no resync, as JAX's pallas_v2 does: it assumes uniform channel spacing.
+exact sincos. `cuda_v2` advances the phasor over the channels by repeated
+complex multiplies with e^{−i·pi·Δk}, Δk = k[1] − k[0], and restarts it from
+an exact sincos every CHANNEL_GROUP channels (JAX's pallas_v2 starts once, at
+channel 0, and drifts past the 1e-5 gate at C = 256); it assumes uniform
+channel spacing.
 
 Each wrapper dispatches on the device of the staging it is given: a CPU
 staging runs the plain version, a CUDA staging launches the kernel (or
@@ -34,6 +36,8 @@ from .gridder import (
     jones_gridder,
     ptr,
 )
+
+CHANNEL_GROUP = 8   # exact restarts of K8a's recurrence (kChanGroup in csrc/gridder_direct.cu)
 
 
 def expi(phase: torch.Tensor) -> torch.Tensor:
@@ -63,8 +67,8 @@ def gridder_direct_plain(params: IDGParams, stg: Staged, recurrence: bool):
     """The kernel's function in complex64 torch ops, chunked over subgrids:
     the phasor of every (visibility, pixel), materialized, contracted with
     the visibilities over (t, c); then Jones A1ᴴ·P·A2 and the taper. With
-    `recurrence`, the phasors of channel c > 0 come from channel c − 1 by one
-    complex multiply, as JAX's _kernel_direct(recurrence=True) makes them.
+    `recurrence`, each group of CHANNEL_GROUP channels starts from an exact
+    phasor and steps by one complex multiply per channel, as the kernel does.
     Returns c64[S, P, N, N]."""
     full_fp32_matmuls(stg.device)
     S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
@@ -76,13 +80,15 @@ def gridder_direct_plain(params: IDGParams, stg: Staged, recurrence: bool):
         pi, po = direct_geometry(stg, lo, hi)                       # [s,T,NN], [s,1,NN]
         vis = stg.vis[lo:hi]                                        # [s,T,C,P]
         if recurrence:
-            ph = expi(po - pi * k[0])
             d = expi(-(pi * channel_step(k)))
             pix = 0
-            for c in range(C):
-                pix = pix + torch.einsum("stp,stq->sqp", vis[:, :, c], ph)
-                if c + 1 < C:
-                    ph = ph * d
+            for c0 in range(0, C, CHANNEL_GROUP):
+                c1 = min(c0 + CHANNEL_GROUP, C)
+                ph = expi(po - pi * k[c0])
+                for c in range(c0, c1):
+                    pix = pix + torch.einsum("stp,stq->sqp", vis[:, :, c], ph)
+                    if c + 1 < c1:
+                        ph = ph * d
         else:
             ph = expi(po[:, :, None] - pi[:, :, None] * k[:, None])  # [s,T,C,NN]
             pix = torch.einsum("stcp,stcq->sqp", vis, ph)

@@ -15,20 +15,24 @@ rounded to nearest even:
              (the first sums lh·rh + ll·rl, the second lh·rl + ll·rh)
   "default"  lh·rh, one bf16 pass (what the TPU runs for DEFAULT precision;
              JAX on the CPU takes float32 there instead)
+  "3xtf32"   the gridder K1's product (csrc/gridder.cu, TF32 `wgmma`), with
+             hi = tf32(x), lo = tf32(x − hi) instead: lh·rh + (lh·rl + ll·rh),
+             each product exact in float32; lo·lo is dropped
 
 JAX's "3x2" also recovers all four products, by stacking the splits on the
 row axis; it is a TPU layout that no rung of the port runs and is not
-ported. The tensor-core kernels (csrc/gridder_separable.cu,
+ported. The bf16 tensor-core kernels (csrc/gridder_separable.cu,
 degridder_separable.cu, degridder_polstack.cu) take the same split with
 ``__float2bfloat16_rn`` and run each product as bf16 ``mma.sync`` into
-float32 accumulators.
+float32 accumulators; K1 splits with ``tf32_rn`` (csrc/wgmma.cuh), the
+rounding of `split_tf32`.
 """
 
 from __future__ import annotations
 
 import torch
 
-MODES = ("highest", "3x", "3x2k", "default")
+MODES = ("highest", "3x", "3x2k", "default", "3xtf32")
 
 
 def rank_precisions(w_rank: int) -> tuple:
@@ -63,10 +67,31 @@ def split_bf16(x: torch.Tensor):
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as K1's `cvt.rna.tf32.f32` rounds: add half of the
+    dropped unit to the float's bits, then clear the 13 dropped bits. Torch
+    has no TF32 type on the CPU. Finite values below 2^128 only."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) of a float32 tensor as float32 values exactly representable
+    in TF32: hi = tf32(x), lo = tf32(x − hi) (`round_tf32`), as K1 splits its
+    operands; hi + lo = x to 2^-22 relative."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
 def dot_mixed(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     """a @ b (float32, batched over leading axes) taken as `mode` says."""
     if mode == "highest":
         return a @ b
+    if mode == "3xtf32":
+        ah, al = split_tf32(a)
+        bh, bl = split_tf32(b)
+        return ah @ bh + (ah @ bl + al @ bh)
     ah, al = split_bf16(a)
     bh, bl = split_bf16(b)
     if mode == "default":

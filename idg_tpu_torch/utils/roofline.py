@@ -4,7 +4,7 @@ table use.
 
 The counterpart of ``idg_tpu/utils/roofline.py``, with the published peaks
 of an NVIDIA H100 SXM (NVIDIA's data sheet, dense, at its 700 W limit) per
-unit: the FP32 CUDA cores and the bf16 tensor cores. A kernel's bound is the
+unit: the FP32 CUDA cores and the bf16 and TF32 tensor cores. A kernel's bound is the
 least time the card could take for its work: the larger of its bytes over
 the memory rate and its operations over the rate of the unit that does them.
 A card below its power limit runs slower under load, so a share of the
@@ -17,22 +17,26 @@ from __future__ import annotations
 from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOP_PER_S = {"fp32": 67e12, "bf16": 989e12}
+PEAK_FLOP_PER_S = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 
 # device-name substrings of the H100 SXM (torch.cuda.get_device_name)
 H100_SXM_NAMES = ("H100 80GB HBM3", "H100 SXM")
 
-# the rungs whose products run on the tensor cores; every other rung runs on
-# the FP32 CUDA cores
+# the rungs whose products run on the bf16 tensor cores, and those on the
+# TF32 tensor cores (K1, and K1 at rank 1); every other rung runs on the FP32
+# CUDA cores
 TENSOR_CORE_VERSIONS = frozenset({
     ("gridder", "cuda_v4"), ("gridder", "cuda_v5"),
     ("degridder", "cuda_v4"), ("degridder", "cuda_v5"), ("degridder", "cuda_v6"),
 })
+TF32_VERSIONS = frozenset({("gridder", "cuda_v6"), ("gridder", "cuda_v7")})
 
 
 def unit(workload: str, version: str) -> str:
-    """The unit a rung's products run on: "bf16" or "fp32"."""
-    return "bf16" if (workload, version) in TENSOR_CORE_VERSIONS else "fp32"
+    """The unit a rung's products run on: "bf16", "tf32" or "fp32"."""
+    if (workload, version) in TENSOR_CORE_VERSIONS:
+        return "bf16"
+    return "tf32" if (workload, version) in TF32_VERSIONS else "fp32"
 
 
 def bound_seconds(flops: float, nbytes: float, unit_name: str = "fp32"):

@@ -50,9 +50,21 @@ def _inputs(n, channels, w_scale):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,channels,w_scale", [
     (16, 8, None), (32, 7, None), (16, 8, 1000.0), (32, 16, 1000.0),
+    (16, 48, None), (32, 48, None), (16, 3, None), (32, 16, "non-uniform"),
 ])
 def test_kernels_match_plain_and_oracle(card, n, channels, w_scale):
-    params, obs, sub, rank = _inputs(n, channels, w_scale)
+    """K1 (TF32 wgmma) and K2 against their plain versions and the oracle:
+    w = 0, rank 4 (w_scale 1000), 48 channels, a ragged V (T·C = 112 and 48
+    are not multiples of K1's 32-visibility tile) and non-uniform
+    wavenumbers, which K1 and K2 take with no fallback."""
+    if w_scale == "non-uniform":
+        params, obs, sub, rank = _inputs(n, channels, None)
+        k = np.array(obs.wavenumbers, copy=True)
+        k[-1] *= 1.05
+        obs = dataclasses.replace(obs, wavenumbers=k)
+        assert _resolve("gridder", "cuda_v6", params, obs)[0] == "cuda_v6"
+    else:
+        params, obs, sub, rank = _inputs(n, channels, w_scale)
     stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
     sub_cpu, sub_gpu = torch.from_numpy(sub), torch.from_numpy(sub).to(card)
 
@@ -250,9 +262,12 @@ def _direct_problem(n, channels, w_value):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,channels,w_value", [
     (16, 16, None), (32, 11, None), (32, 7, None), (16, 16, 2.0e4), (32, 16, 2.0e4),
+    (16, 256, None),
 ])
 def test_direct_kernels_match_plain_and_oracle(card, n, channels, w_value):
-    """K8a and K9a, full phase (v1) and channel recurrence (v2)."""
+    """K8a and K9a, full phase (v1) and channel recurrence (v2); at 256
+    channels the recurrences hold the gate by their exact restarts every 8
+    channels."""
     params, obs, sub = _direct_problem(n, channels, w_value)
     stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
     sub_cpu, sub_gpu = torch.from_numpy(sub), torch.from_numpy(sub).to(card)
@@ -272,9 +287,13 @@ def test_direct_kernels_match_plain_and_oracle(card, n, channels, w_value):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,offset", [(1 << 20, 0), ((1 << 20) + 3, 0), (4099, 1)])
+@pytest.mark.parametrize("n,offset", [
+    (1 << 20, 0), ((1 << 20) + 3, 0), (4099, 1), (1 << 28, 0), (3, 0), (2048, 0),
+    (2048 * 397 + 4, 0), (2048 * 397 + 5, 0), (2048 * 397 + 5, 2),
+])
 def test_vadd_kernel_matches_plain(card, n, offset):
-    """K10 on float4 quads with a scalar tail, and on misaligned inputs."""
+    """K10 on its 2048-float chunks with a partial last chunk and a scalar
+    tail, at n = 2^28, below one quad, and on misaligned inputs."""
     x, y = make_vadd_inputs(n + offset, card)
     x, y = x[offset:], y[offset:]
     got = kernels.vadd_cuda(x, y)

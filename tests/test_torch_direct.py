@@ -111,6 +111,18 @@ def test_direct_matches_jax_and_oracle(workload, version, case, small_params):
     assert _error(got, want) <= GATE
 
 
+def test_gridder_recurrence_holds_the_gate_at_256_channels(small_params):
+    """The smallest problem that shows pallas_v2's drift (N = 16, T = 8,
+    C = 256): JAX's gridder recurrence never restarts and misses the gate
+    against the oracle (4.4e-5); the port's cuda_v2 restarts exactly every 8
+    channels, as its degridder does, and holds it (2.9e-6)."""
+    params = dataclasses.replace(small_params, nr_timesteps_subgrid=8, nr_channels=256)
+    obs, sub = jdata.make_observation(params, include_subgrids=True)
+    oracle = _oracle("gridder", params, obs, sub)
+    assert _error(_port_run("gridder", "cuda_v2", params, obs, sub), oracle) <= GATE
+    assert _error(japi.run_gridder(params, obs, version="pallas_v2"), oracle) > GATE
+
+
 @pytest.mark.parametrize("workload", ["gridder", "degridder"])
 def test_recurrence_falls_back_on_non_uniform_channels(workload, small_params):
     """As JAX's pallas_v2 falls back to pallas_v1, cuda_v2 warns and runs

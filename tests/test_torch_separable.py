@@ -41,7 +41,7 @@ from idg_tpu_torch.models.reference import degridder_reference, gridder_referenc
 from idg_tpu_torch.ops import cuda as kernels
 from idg_tpu_torch.ops.common import stage
 from idg_tpu_torch.ops.cuda.gridder_separable import plain_precisions
-from idg_tpu_torch.ops.precision import dot_mixed
+from idg_tpu_torch.ops.precision import dot_mixed, round_tf32, split_tf32
 from idg_tpu_torch.types import from_numpy_observation
 from idg_tpu_torch.utils.compare import check_error
 
@@ -102,6 +102,59 @@ def test_dot_mixed_matches_jax(mode):
         want = np.asarray(_dot_mixed(jnp.asarray(a), jnp.asarray(b), mode))
     assert got.dtype == np.float32
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+# K1's product per rank, lhs_r [2N × V] · W [V × 2NP] at V = 2048, N = 32 and 16
+K1_TILES = [(64, 256), (32, 128)]
+
+
+@pytest.mark.parametrize("rows,cols", K1_TILES)
+def test_3xtf32_is_within_2e20_of_float64(rows, cols):
+    """"3xtf32", the gridder K1's product (three TF32 passes), at K1's tile
+    shapes on phasor-like operands: within 2⁻²⁰ of the float64 product in
+    normwise relative error (its lo·lo term and lo's rounding are ~2⁻²²,
+    float32's accumulation the rest), and closer than "3x2k" (bf16 splits
+    keep 2⁻¹⁷)."""
+    rng = np.random.default_rng(rows)
+    lhs = np.cos(rng.uniform(0.0, 2 * np.pi, (rows, 2048)))
+    w = np.cos(rng.uniform(0.0, 2 * np.pi, (2048, cols))) * rng.normal(size=(2048, cols))
+    a, b = (torch.from_numpy(x.astype(np.float32)) for x in (lhs, w))
+    want = lhs.astype(np.float32).astype(np.float64) @ w.astype(np.float32).astype(np.float64)
+
+    def error(mode):
+        got = dot_mixed(a, b, mode)
+        assert got.dtype == torch.float32
+        return np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+
+    assert error("3xtf32") <= 2.0 ** -20
+    assert error("3xtf32") < error("3x2k")
+
+
+@pytest.mark.parametrize("bits,rounded", [
+    (0x3F801000, 0x3F802000),   # a tie: away from zero
+    (0xBF803000, 0xBF804000),   # a tie, negative: away from zero
+    (0xBF801001, 0xBF802000),   # past the tie, negative
+    (0x3F800FFF, 0x3F800000),   # below the tie: down
+    (0x3F802000, 0x3F802000),   # already TF32
+])
+def test_round_tf32_is_cvt_rna(bits, rounded):
+    """round_tf32 rounds as K1's cvt.rna.tf32.f32: to nearest, ties away
+    from zero."""
+    x = torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(torch.float32)
+    got = round_tf32(x).view(torch.int32).item() & 0xFFFFFFFF
+    assert got == rounded
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 1e3, 1e20])
+def test_split_tf32_reproduces_its_input(scale):
+    """hi + lo = x to 2⁻²² relative, both parts with their 13 low mantissa
+    bits clear (what the tensor cores read exactly)."""
+    x = torch.from_numpy((np.random.default_rng(3).normal(size=4096) * scale).astype(np.float32))
+    hi, lo = split_tf32(x)
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    rel = (hi.double() + lo.double() - x.double()).abs() / x.double().abs()
+    assert float(rel.max()) <= 2.0 ** -22
 
 
 @pytest.mark.parametrize("case", ["w0", "w_default", "w_rank2", "w_escalated"])
