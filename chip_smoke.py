@@ -85,6 +85,14 @@ non-zero:
               K10 exactly against torch.add at n = 2^28 and at sizes off
               its chunk boundaries, aligned and misaligned, then timed
               beside torch.add; and the phase's seconds
+ 13. K2       the redesigned K2 (degridder cuda_v7, TF32 wgmma): ptxas
+              registers and spills and the cuobjdump HGMMA count of every
+              instance (each must have some); both forms against the f64
+              oracle at w = 0, at rank 4, at C = 48, on non-uniform
+              wavenumbers (cuda_v7, no fallback) and on a ragged V, with
+              counted launches (K2_ORACLE_GATE); both forms against their
+              plain versions on the first 512 default subgrids
+              (K2_PLAIN_GATE) and timed; and the phase's seconds
 Then a JSON line of per-kernel results (each with its bound from
 idg_tpu_torch/utils/roofline.py: the larger of its bytes over 3.35 TB/s and
 its operations over the FP32, bf16 or TF32 peak; and the time of one PyTorch call
@@ -118,6 +126,8 @@ SEPARABLE = tuple((w, f"cuda_v{i}") for w in ("gridder", "degridder") for i in (
 RESYNC_CHANNELS = 48   # the channel recurrence restarts exactly at c = 16 and 32
 K1_ORACLE_GATE = 4e-6  # K1 (TF32, three passes) against the f64 oracle
 K1_PLAIN_GATE = 3e-6   # K1 against its float32 plain version, 512 default subgrids
+K2_ORACLE_GATE = 4e-6  # K2 (TF32, three passes) against the f64 oracle
+K2_PLAIN_GATE = 3e-6   # K2 against its float32 plain version, 512 default subgrids
 
 
 def tensor_bytes(*objs) -> int:
@@ -364,7 +374,8 @@ def grid_stage_phase(rows, timing, plain_timing):
     add_idx = window_index(hcy, hcx, oyx[:, 0], oyx[:, 1], n, g, p)
     ecy, ecx = cy.long() % g, cx.long() % g
     extract_idx = window_index(ecy, ecx, ecy % n, ecx % n, n, g, p)
-    units = {"gridder_cuda_v6_pieces": roofline.unit("gridder", "cuda_v6")}   # TF32
+    units = {"gridder_cuda_v6_pieces": roofline.unit("gridder", "cuda_v6"),      # TF32
+             "degridder_cuda_v7_fused": roofline.unit("degridder", "cuda_v7")}   # TF32
     flops = {"gridder_cuda_v6_pieces": model_flops(params, True),
              "grid_add_cuda": 2.0 * pieces.numel(), "grid_extract_cuda": 0.0,
              "degridder_cuda_v7_fused": model_flops(params, True)}
@@ -1086,25 +1097,10 @@ def redesign_phase(rows, timing):
     from idg_tpu_torch.ops import vadd as tvadd
     from idg_tpu_torch.ops.api import _resolve
     from idg_tpu_torch.ops.common import slice_staged, stage
-    from idg_tpu_torch.ops.cuda import build
     from idg_tpu_torch.utils.compare import check_error
 
     t_start = time.perf_counter()
-    lines = build.build_log.splitlines()
-    ptxas = {}
-    for i, line in enumerate(lines):
-        kernel = re.search(r"\d+gridder_kernelILi(\d+)ELb(\d)E", line)
-        if "Compiling entry" in line and kernel:
-            ptxas[kernel.groups()] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
-    hgmma = {re.search(r"gridder_kernelILi(\d+)ELb(\d)E", name).groups(): count
-             for name, count in sass_counts(str(build.build()), r"\d+gridder_kernelILi",
-                                            "HGMMA").items()}
-    for key in sorted(set(ptxas) | set(hgmma)):
-        form = "fused" if key[1] == "1" else "non-fused"
-        phase("redesign", f"K1 N = {key[0]} {form}: {hgmma.get(key, 0)} HGMMA; ptxas "
-                          f"{ptxas.get(key, 'missing')}")
-    if len(hgmma) != 4 or not all(hgmma.values()):
-        raise RuntimeError(f"K1's instances do not all run on the tensor cores: {hgmma}")
+    instance_report("redesign", "K1", r"\d+gridder_kernel")
 
     # K1, both forms, against the f64 oracle on the correctness problem
     params = IDGParams.correctness_defaults()
@@ -1190,6 +1186,129 @@ def redesign_phase(rows, timing):
     del x, y
     torch.cuda.empty_cache()
     phase("redesign", f"phase 12: {time.perf_counter() - t_start:.1f} s")
+
+
+def instance_report(tag: str, label: str, kernel: str) -> None:
+    """Print ptxas's registers and spills and the cuobjdump HGMMA count of
+    each (N, kFuse) instance of `kernel` (a mangled name's stem, e.g.
+    "16degridder_kernel"); raise unless all four issue wgmma."""
+    from idg_tpu_torch.ops.cuda import build
+
+    stem = re.compile(rf"{kernel}ILi(\d+)ELb(\d)E")
+    lines = build.build_log.splitlines()
+    ptxas = {}
+    for i, line in enumerate(lines):
+        found = stem.search(line)
+        if "Compiling entry" in line and found:
+            ptxas[found.groups()] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+    hgmma = {stem.search(name).groups(): count
+             for name, count in sass_counts(str(build.build()), stem.pattern, "HGMMA").items()}
+    for key in sorted(set(ptxas) | set(hgmma)):
+        form = "fused" if key[1] == "1" else "non-fused"
+        phase(tag, f"{label} N = {key[0]} {form}: {hgmma.get(key, 0)} HGMMA; ptxas "
+                   f"{ptxas.get(key, 'missing')}")
+    if len(hgmma) != 4 or not all(hgmma.values()):
+        raise RuntimeError(f"{label}'s instances do not all run on the tensor cores: {hgmma}")
+
+
+def k2_phase(rows, timing):
+    """Phase 13: the redesigned K2 (degridder cuda_v7, TF32 wgmma): ptxas
+    lines and HGMMA counts of every instance; both forms against the f64
+    oracle at w = 0, rank 4, C = 48, on non-uniform wavenumbers (no
+    fallback) and on a ragged V, with counted launches; both against their
+    plain versions on the first 512 default subgrids, then timed."""
+    import dataclasses
+
+    import torch
+
+    from idg_tpu_torch.config import IDGParams
+    from idg_tpu_torch.data import (initialize_subgrids, make_observation,
+                                    make_perf_observation, make_w_observation)
+    from idg_tpu_torch.models.reference import degridder_reference
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops import grid as tgrid
+    from idg_tpu_torch.ops.api import _resolve
+    from idg_tpu_torch.ops.common import slice_staged, stage
+    from idg_tpu_torch.utils.compare import check_error
+
+    t_start = time.perf_counter()
+    instance_report("K2", "K2", r"\d+degridder_kernel")
+
+    # both forms against the f64 oracle on the correctness problem; the
+    # fused form takes the subgrids' pieces (inverse DFT and roll), which
+    # its prologue turns back
+    params = IDGParams.correctness_defaults()
+    obs0, _ = make_observation(params)
+    params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+    params_c = dataclasses.replace(params, nr_channels=RESYNC_CHANNELS)
+    obs_c, _ = make_observation(params_c)
+    k = np.array(obs0.wavenumbers, copy=True)
+    k[-1] *= 1.05
+    obs_nu = dataclasses.replace(obs0, wavenumbers=k)
+    params_r = dataclasses.replace(params, nr_timesteps_subgrid=37, nr_channels=7)
+    obs_r, _ = make_observation(params_r)
+    for label, p, obs in (("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w),
+                          (f"C = {RESYNC_CHANNELS}", params_c, obs_c),
+                          ("non-uniform channels", params, obs_nu),
+                          ("ragged V = 37·7", params_r, obs_r)):
+        version, rank = _resolve("degridder", "cuda_v7", p, obs)
+        rank = rank or 2
+        md = obs.metadata
+        oyx = torch.as_tensor(tgrid.roll_offsets(md.coord_x, md.coord_y, p.grid_size,
+                                                 p.subgrid_size))
+        sub = np.ascontiguousarray(initialize_subgrids(p.nr_subgrids, p.nr_correlations,
+                                                       p.subgrid_size))
+        pieces = tgrid.pieces_from_subgrids(torch.from_numpy(sub), oyx)
+        stg = stage(p, obs, "cuda", with_vis=False)
+        kernels.reset_launch_counts()
+        got = kernels.degridder_cuda_v7(p, stg, torch.from_numpy(sub).cuda(), rank)
+        got_f = kernels.degridder_cuda_v7(p, stg, pieces.cuda(), rank, fuse_oyx=oyx.cuda())
+        torch.cuda.synchronize()
+        launched = {name: n for name, n in launch_counts().items() if n}
+        oracle = degridder_reference(p, obs, sub)
+        err = check_error(got, oracle, verbose=False).mean_error
+        err_f = check_error(got_f, oracle, verbose=False).mean_error
+        ok = (version == "cuda_v7" and max(err, err_f) <= K2_ORACLE_GATE
+              and (rank >= 4) == ("rank 4" in label)
+              and launched == {"degridder_cuda_v7": 2, "degridder_cuda_v7_fused": 1})
+        phase("K2", f"K2 {label}: resolved ({version}, {rank}), mean_error {err:.3e}, "
+                    f"fused {err_f:.3e} (gate {K2_ORACLE_GATE:g}), launches {launched} "
+                    f"{'PASSED' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"K2 {label} failed")
+
+    # both forms against their plain versions on the first 512 default
+    # subgrids, then timed on the full problem
+    params = IDGParams.from_env()
+    obs = make_perf_observation(params)
+    md = obs.metadata
+    stg = stage(params, obs, "cuda", with_vis=False)
+    sub = torch.as_tensor(np.ascontiguousarray(initialize_subgrids(
+        params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
+    oyx = torch.as_tensor(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size,
+                                             params.subgrid_size), device="cuda")
+    pieces = tgrid.pieces_from_subgrids(sub, oyx)
+    n = COMPARE_SUBGRIDS
+    small = slice_staged(stg, 0, n)
+    for name, kernel, plain, small_args, full_args in (
+            ("degridder_cuda_v7", kernels.degridder_cuda_v7, kernels.degridder_plain,
+             (params, small, sub[:n], 2), (params, stg, sub, 2)),
+            ("degridder_cuda_v7_fused",
+             lambda p, s, sb, r, o: kernels.degridder_cuda_v7(p, s, sb, r, fuse_oyx=o),
+             lambda p, s, sb, r, o: kernels.degridder_plain(p, s, tgrid._finish_extract(sb, o), r),
+             (params, small, pieces[:n], 2, oyx[:n]), (params, stg, pieces, 2, oyx))):
+        got = kernel(*small_args)
+        torch.cuda.synchronize()
+        err = check_error(got, plain(*small_args), verbose=False).mean_error
+        ms = device_ms(kernel, *full_args, harness=timing)
+        phase("K2", f"{name} vs plain on {n} subgrids: mean_error {err:.3e} "
+                    f"(gate {K2_PLAIN_GATE:g}); full problem {ms:.3f} ms "
+                    f"{'PASSED' if err <= K2_PLAIN_GATE else 'FAILED'}")
+        if err > K2_PLAIN_GATE:
+            raise RuntimeError(f"{name} disagrees with its plain version")
+    del stg, small, sub, pieces
+    torch.cuda.empty_cache()
+    phase("K2", f"phase 13: {time.perf_counter() - t_start:.1f} s")
 
 
 def main() -> int:
@@ -1328,6 +1447,9 @@ def main() -> int:
 
     # 12. the redesigned kernels: K1 on the TF32 tensor cores, K10
     redesign_phase(rows, timing)
+
+    # 13. the redesigned K2 on the TF32 tensor cores
+    k2_phase(rows, timing)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,59 +1,190 @@
-// Degridder: subgrids c64[S, P, N, N] -> visibilities c64[S, T, C, P], FP32
-// on the CUDA cores.
+// K2, degridder cuda_v7: subgrids c64[S, P, N, N] -> visibilities
+// c64[S, T, C, P], the pol-stacked separable product on the TF32 tensor
+// cores (`wgmma`).
 //
 // Replaces idg_tpu/ops/pallas/degridder.py:_kernel_polstack_batch (launcher
-// _degridder_polstack_batch_run, registered as degridder pallas_v7),
-// non-fused 4-D input form, and with kFuse the fused grid-stage prologue
-// (the `fuse` branch, degridder.py:1022-1059, degridder_pallas_v7_staged
-// with fuse_oyx). It computes the adjoint of the gridder:
-//   pix'[y,x,p] = A1 · (sph·P) · A2ᴴ                      (prologue)
-//   vis[v,p] = Σ_{y,x} pix'[y,x,p] · conj(Φx[v,x] · Φy[v,y] · Σ_{r<w_rank} (iμ_v·n[y,x])^r / r!)
+// _degridder_polstack_batch_run, registered as degridder pallas_v7 and, at
+// rank 1, pallas_v8), non-fused 4-D input form, and with kFuse the fused
+// grid-stage prologue (the `fuse` branch, degridder.py:1022-1059,
+// degridder_pallas_v7_staged with fuse_oyx). Per subgrid and Taylor rank r:
+//   B = A1·(sph·P)·A2ᴴ                                          (prologue)
+//   lhs_r [4N × 2N] = [B_re·n^r | B_im·n^r], rows (p, y)          (pol-stacked)
+//   D_r = lhs_r · [[Φx_re, −Φx_im], [Φx_im, Φx_re]]              (the product)
+//   vis[v,p] += conj((iμ_v)^r / r!) · Σ_y conj(Φy[v,y]) · D_r,p[y,v]   (stage 2)
+//   Φx[v,x] = e^{i(po_x[x] − l[x]·u_t·k_c)},  Φy[v,y] = e^{i(po_y[y] − m[y]·v_t·k_c)}
 // and writes [S, T, C, P] directly (the TPU kernel wrote c-major [S, P, C·T]
-// and transposed afterwards).
+// and transposed afterwards). Every Φ entry is an exact sincosf (no fast
+// math, no channel recurrence), so non-uniform wavenumbers need no fallback.
 //
-// What bounds it on an H100: FP32 arithmetic, as in the gridder: ~22 FMAs
-// per pixel and visibility against 32 B of input per visibility.
+// What bounds it on an H100: the product, 4N × 2N × 2V real multiply-adds a
+// subgrid and pass. At the default problem (rank 2, N = 32, V = 2048) it is
+// 4 TF32 passes × 67.1 MFLOP × 24,500 subgrids = 6.6e12 FLOP, 13.3 ms at
+// 495 TFLOP/s, the count of the gridder K1; around it 131,072 exact sincosf
+// a subgrid and stage 2 (~1 M FMA a subgrid, ~0.8 ms if alone). Its bytes
+// (2.4 GB) take 0.72 ms. The reference's operation model (1.779e12 FLOP a
+// pass) over the TF32 peak gives 3.594 ms, fused 3.699.
 //
-// Design: one block per subgrid, 256 threads. The prologue writes the
-// prepared pixels (P·N²·8 B = 32 KB at N=32) and n into shared memory. Each
-// thread then owns one visibility at a time: every visibility is an
-// independent sum over N² pixels, so no reduction crosses threads. The
-// thread computes its Φx row once into its own column of shared memory
-// (layout [x][thread], so a warp's loads are conflict-free), then walks y,
-// computing Φy with one sincosf per row, while the pixels and n come as
-// warp-wide broadcasts. That is O(V·N) sincosf per subgrid, as in the
-// gridder. The TPU kernel's K-merged bf16 split products (kmerge, cfold),
-// pol stacking and software pipelining served its bf16 matrix unit and
-// in-order scheduler and have no counterpart here.
+// Design (the gridder K1's, csrc/gridder.cu, turned around):
+//  - lhs_r is the 64-row wgmma operand: 128 rows at N = 32 (two consumer
+//    warpgroups, two pols each), 64 at N = 16 (one), so both subgrid sizes
+//    fill whole warpgroups. It is formed and split once a subgrid, in the
+//    prologue, and read by every tile. A tile of 32 visibilities is the
+//    64-column rhs (the real column of each visibility, then its imaginary
+//    one), K = 2N (x re | x im), formed once a tile for every rank.
+//  - TF32 in three passes (wgmma.cuh: lo·hi + hi·lo + hi·hi, ~22 bits of
+//    each operand, so degridder_plain, float32 "highest", stays the
+//    reference) for rank 0 and for every rank of an escalated rank; hi·hi
+//    alone for rank 1 at rank ≤ 2 (ops/precision.py, "3xtf32").
+//  - Stage 2 on the accumulators: a thread holds D_re and D_im of two rows
+//    (p, y), (p, y + 8) at 8 visibilities. Σ_y conj(Φy) and Σ_r conj(c_r)
+//    commute, so the ranks are summed first: the first rank's products
+//    accumulate in the rank-sum registers themselves, the second's in a
+//    second set, issued right behind (the tensor cores run both back to
+//    back), and each later rank is added as (−i)^r·μ^r/r! times its D, a
+//    quarter turn and two FMAs an entry. Φy multiplies the rank sum once a
+//    tile, then a butterfly over the 8 lanes of a column group leaves each
+//    lane one visibility's sum over its warp's 16 rows. The warps of one pol
+//    (two at N = 32) meet in shared memory once a tile, where the producers
+//    add them and store the tile's [32, P] outputs, coalesced. Only the
+//    wgmma's own sum over 2N truncates (the tensor cores' accumulation); the
+//    rank sum, the y-sum and the pols' halves are round-to-nearest FMAs and
+//    FADDs, and no sum runs across tiles (a visibility lives in one tile).
+//  - Warp specialization: the consumer warpgroups issue the products and
+//    fold them; after them 8N producer threads form the next tile (512
+//    threads at N = 32, 256 at N = 16). A producer owns one visibility of
+//    the tile and 4 x and 4 y: eight exact sincosf, Φx's TF32 split written
+//    as 16-byte stores into both of its columns (consecutive lanes on
+//    consecutive rows: no bank conflicts), Φy into a padded [v][y] table
+//    that stage 2 reads without conflicts. The roles come through a warp
+//    shuffle and the ragged tile is masked by selects, not branches: ptxas
+//    serializes wgmma around a divergent path. One barrier a tile hands the
+//    two stages over.
+//  - Shared memory: the lhs of one rank is 32 KB a split at N = 32 (8 KB at
+//    N = 16), a stage 41 KB (21 KB). Up to rank 2 the lhs (hi of each rank,
+//    lo of rank 0) sits beside both stages (182 KB at N = 32); at N = 16
+//    every rank up to 6 does. At N = 32 above rank 2 (three passes for each
+//    rank, 64 KB a rank) the ranks go in groups of two: each group forms its
+//    lhs and walks all tiles, forming Φ again, and adds its visibilities to
+//    those of the groups before it (a round-to-nearest FADD on the output).
+//  - 124 registers at N = 32, 122 at N = 16, no spill. Against the 13.3 ms
+//    product floor it runs at about half the TF32 rate (PERF.md): rank 1
+//    alone takes nearly as long as rank 2, and builds that dropped the
+//    products, the formation or stage 2 each saved only part of the time,
+//    so the CUDA-core work around the products (the formation, stage 2,
+//    the prologue) on 16 warps a SM, not the tensor cores, sets its pace.
 //
 // Fused prologue (kFuse): the input is the range extraction's block-rolled
 // pieces. Per pol, the block reads its piece un-rolled by (oy, ox) = oyx[s]
 // (an exact index permutation, tile[y][x] = piece[(y+oy)%N][(x+ox)%N], in
 // place of the TPU kernel's conjugate Fourier phases), K3
 // (common.cuh:dft2_tile) applies the forward folded-shift DFT, and the
-// subgrid lands in shared memory, where the taper/Jones prologue reads it in
-// place of device memory. The result is exactly the non-fused kernel on
-// ops/grid.py:_finish_extract(pieces). The subgrid and K3's workspace use
-// the Φx region, which is free until the main loop, so shared memory and
-// occupancy stay those of the non-fused kernel.
+// subgrid lands in the stages' shared memory, free until the first tile,
+// where the taper/Jones prologue reads it in place of device memory. The
+// result is exactly the non-fused kernel on ops/grid.py:_finish_extract(pieces).
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using idg::kPols;
+
+constexpr int kVT = 32;             // visibilities a tile
+constexpr int kCols = 2 * kVT;      // rhs columns: the real column of each visibility, then the imaginary
+constexpr uint32_t kLBO = 128;      // the next K chunk's core matrix
 
 template <int N>
-constexpr size_t smem_bytes() {
-  return (size_t)N * N * idg::kPols * sizeof(float2)  // prepared pixels
-         + (size_t)N * kThreads * sizeof(float2)      // Φx, one column per thread
-         + (size_t)N * N * sizeof(float);             // n
+struct Tile {
+  static constexpr int kK = 2 * N;                  // contraction: x (re) | x (im)
+  static constexpr int kKC = kK / 4;                // 4-wide K chunks of an operand row
+  static constexpr uint32_t kSBO = kKC * 128;       // the next 8-row group's core matrices
+  static constexpr int kRows = kPols * N;           // lhs rows (p, y)
+  static constexpr int kGroups = kRows / 64;        // consumer warpgroups, one 64-row slab each
+  static constexpr int kConsumers = 128 * kGroups;  // the products and stage 2
+  static constexpr int kConsWarps = kConsumers / 32;
+  static constexpr int kProducers = kVT * N / 4;    // the formation: one (visibility, 4 x, 4 y) each
+  static constexpr int kThreads = kConsumers + kProducers;
+  static constexpr int kMinBlocks = N == 16 ? 2 : 1;
+  static constexpr int kLdPhy = N + 2;              // Φy row stride (float2): conflict-free stage 2
+  static constexpr size_t kBytesL = (size_t)kRows * kK * 4;   // one rank's lhs, hi or lo
+  static constexpr size_t kBytesR = (size_t)kCols * kK * 4;   // a tile's rhs, hi or lo
+  static constexpr size_t kBytesPhy = (size_t)kVT * kLdPhy * sizeof(float2);
+  // a stage: rhs hi, rhs lo, Φy [kVT][kLdPhy], μ [kVT]
+  static constexpr size_t kStage = 2 * kBytesR + kBytesPhy + kVT * sizeof(float);
+  // the warps' stage-2 sums, two tiles: [2][kConsWarps][kVT]
+  static constexpr size_t kBytesRed = 2 * (size_t)kConsWarps * kVT * sizeof(float2);
+  // the fused prologue's subgrid [P][N·N], K3's input, row pass and factors
+  static constexpr size_t kPrologueBytes = (size_t)(kPols + 3) * N * N * sizeof(float2);
+  static_assert(kPrologueBytes <= 2 * kStage, "the fused prologue fits the stages");
+  static_assert(kStage % 128 == 0 && kBytesR % 128 == 0 && kBytesPhy % 128 == 0,
+                "regions stay 128-byte aligned");
+  static_assert(kProducers >= kVT * kPols, "one producer a tile output");
+};
+
+// One rank's products over one tile, this warpgroup's slab of the lhs in
+// slot `slot` (its lo in slot group + slot) against the stage's rhs, into
+// acc (three TF32 passes, or hi·hi alone), inside the caller's commit group.
+template <int N, bool kThree>
+__device__ __forceinline__ void mma_rank(const unsigned char* lhs, const unsigned char* stage,
+                                         int wg, int slot, int group, float (&acc)[32]) {
+  using TL = Tile<N>;
+  const unsigned char* a_hi = lhs + (size_t)slot * TL::kBytesL + wg * 8 * TL::kSBO;
+  const unsigned char* a_lo = a_hi + (size_t)group * TL::kBytesL;
+#pragma unroll
+  for (int ks = 0; ks < TL::kK / 8; ++ks) {
+    const int off = ks * 2 * 128;   // two K chunks a k8 step
+    idg::mma_tf32_step<kThree>(acc, ks == 0, idg::smem_desc(a_hi + off, kLBO, TL::kSBO),
+                               idg::smem_desc(a_lo + off, kLBO, TL::kSBO),
+                               idg::smem_desc(stage + off, kLBO, TL::kSBO),
+                               idg::smem_desc(stage + TL::kBytesR + off, kLBO, TL::kSBO));
+  }
+}
+
+// The sum over the 8 lanes of a column group (lane % 4 alike) of 8 complex
+// partial sums, one per visibility slot: each lane ends with the full sum of
+// slot lane / 4 (three butterfly steps, 14 shuffles).
+__device__ __forceinline__ float2 reduce_slots(const float2 (&sv)[8], int lane) {
+  const bool b16 = lane & 16, b8 = lane & 8, b4 = lane & 4;
+  float2 t[4], u[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 keep = b16 ? sv[i + 4] : sv[i], send = b16 ? sv[i] : sv[i + 4];
+    t[i] = make_float2(keep.x + __shfl_xor_sync(0xffffffffu, send.x, 16),
+                       keep.y + __shfl_xor_sync(0xffffffffu, send.y, 16));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float2 keep = b8 ? t[i + 2] : t[i], send = b8 ? t[i] : t[i + 2];
+    u[i] = make_float2(keep.x + __shfl_xor_sync(0xffffffffu, send.x, 8),
+                       keep.y + __shfl_xor_sync(0xffffffffu, send.y, 8));
+  }
+  const float2 keep = b4 ? u[1] : u[0], send = b4 ? u[0] : u[1];
+  return make_float2(keep.x + __shfl_xor_sync(0xffffffffu, send.x, 4),
+                     keep.y + __shfl_xor_sync(0xffffffffu, send.y, 4));
+}
+
+// sum (+)= (−i)^r · w · d per entry, w the entry's slot's μ^r/r! (slot
+// 2·(i >> 2) + (i & 1) of entry i; D_re in register i, D_im in 16 + i):
+// (−i)^r rotates by a quarter turn per rank, so each entry takes two FMAs
+// (kAdd) or two multiplies (sum = d, in place).
+template <bool kAdd>
+__device__ __forceinline__ void rotate_scale(float (&sum)[32], const float (&d)[32],
+                                             const float (&w)[8], int r) {
+  const float sign = (r & 2) ? -1.0f : 1.0f;
+  const bool odd = r & 1;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float a = sign * w[2 * (i >> 2) + (i & 1)];
+    const float re = odd ? d[16 + i] : d[i], im = odd ? -d[i] : d[16 + i];
+    sum[i] = kAdd ? fmaf(a, re, sum[i]) : a * re;
+    sum[16 + i] = kAdd ? fmaf(a, im, sum[16 + i]) : a * im;
+  }
 }
 
 template <int N, bool kFuse>
-__global__ void __launch_bounds__(kThreads) degridder_kernel(
+__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float* __restrict__ mu,           // [S, T, C]
     const float* __restrict__ k,            // [C]
@@ -71,104 +202,271 @@ __global__ void __launch_bounds__(kThreads) degridder_kernel(
     const int* __restrict__ oyx,            // [S, 2] (kFuse only)
     const float2* __restrict__ wf,          // [N, N] forward DFT factors (kFuse only)
     float2* __restrict__ out,               // [S, T, C, P]
-    int T, int C, int nr_stations, int w_rank) {
+    int T, int C, int nr_stations, int w_rank, int group) {
   using namespace idg;
-  extern __shared__ float4 smem[];
-  float4* s_pix = smem;                                       // [N·N][2] (4 pols)
-  float2* s_phx = reinterpret_cast<float2*>(smem + N * N * 2);  // [N][kThreads]
-  float* s_n = reinterpret_cast<float*>(s_phx + N * kThreads);  // [N·N]
+  using TL = Tile<N>;
+  constexpr int kThreads = TL::kThreads;
+  constexpr int kCons = TL::kConsumers;
+  constexpr int kLd = TL::kLdPhy;
+
+  // [lhs hi: group slots][lhs lo: group slots, or one up to rank 2][stage 0][stage 1][sums]
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nlo = w_rank > 2 ? group : 1;
+  unsigned char* lhs = smem;
+  unsigned char* stages = smem + (size_t)(group + nlo) * TL::kBytesL;
+  float2* red = reinterpret_cast<float2*>(stages + 2 * TL::kStage);
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
+  const int V = T * C;
+  const int nt = (V + kVT - 1) / kVT;
   const size_t nn = (size_t)N * N;
   const float2* sub_s = subgrids + (size_t)s * kPols * nn;
-
-  // fused prologue: pieces → subgrid [P][N·N] in the Φx region
-  float2* s_sub = s_phx;
-  if constexpr (kFuse) {
-    static_assert((kPols + 3) * N * N <= N * kThreads, "K3's workspace fits in s_phx");
-    float2* s_x = s_sub + kPols * N * N;
-    float2* s_tmp = s_x + N * N;
-    float2* s_wf = s_tmp + N * N;
-    for (int e = tid; e < N * N; e += kThreads) s_wf[e] = wf[e];
-    // the roll is taken mod N, as the plain version takes it: no index leaves the tile
-    const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
-#pragma unroll 1
-    for (int p = 0; p < kPols; ++p) {
-      for (int e = tid; e < N * N; e += kThreads) {
-        const int y = e / N, x = e % N;
-        s_x[e] = sub_s[p * nn + ((y + oy) % N) * N + (x + ox) % N];
-      }
-      __syncthreads();
-      float2* sub_p = s_sub + p * nn;
-      dft2_tile<N, kThreads>(s_x, s_tmp, s_wf,
-                             [&](int k1, int k2, float2 v) { sub_p[k1 * N + k2] = v; });
-    }
-    __syncthreads();
-  }
-
-  // prologue: taper, then A1 · P · A2ᴴ (math.hpp:79-92)
+  const float* uvw_s = uvw + (size_t)s * T * 3;
+  const float* mu_s = mu + (size_t)s * V;
+  float2* out_s = out + (size_t)s * V * kPols;
   const size_t at1 = ((size_t)aterm_index[s] * nr_stations + station1[s]) * nn;
   const size_t at2 = ((size_t)aterm_index[s] * nr_stations + station2[s]) * nn;
-  for (int q = tid; q < N * N; q += kThreads) {
-    const float taper = sph[q];
-    float2 p[kPols];
-#pragma unroll
-    for (int i = 0; i < kPols; ++i) {
-      const float2 v = kFuse ? s_sub[i * nn + q] : sub_s[i * nn + q];
-      p[i] = make_float2(v.x * taper, v.y * taper);
-    }
-    float2 o[kPols];
-    jones_degridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, p, o);
-    s_pix[2 * q + 0] = make_float4(o[0].x, o[0].y, o[1].x, o[1].y);
-    s_pix[2 * q + 1] = make_float4(o[2].x, o[2].y, o[3].x, o[3].y);
-    s_n[q] = n[q];
-  }
-  __syncthreads();
 
-  const int V = T * C;
-  const float* uvw_s = uvw + (size_t)s * T * 3;
-  const float* pox_s = po_x + (size_t)s * N;
-  const float* poy_s = po_y + (size_t)s * N;
-  float2* phx = s_phx + tid;  // this thread's column, stride kThreads
-  // no barrier inside this loop: each thread reads only its own column
-  for (int v = tid; v < V; v += kThreads) {
-    const int t = v / C, c = v % C;
-    const float kc = k[c];
-    const float uk = uvw_s[t * 3 + 0] * kc;
-    const float vk = uvw_s[t * 3 + 1] * kc;
-    const float mu_v = mu[(size_t)s * V + v];
-#pragma unroll 4
-    for (int x = 0; x < N; ++x) {
-      float sx, cx;
-      sincosf(pox_s[x] - l[x] * uk, &sx, &cx);
-      phx[x * kThreads] = make_float2(cx, sx);
-    }
-    float2 acc[kPols];
+  // Roles: the warpgroups first issue the products and run stage 2 (the
+  // consumers); the warps after them form the tiles and store the outputs
+  // (the producers). The role comes through a warp shuffle, so the compiler
+  // knows it is uniform in a warp (C7520). A producer owns visibility pv of
+  // a tile and the 4-wide chunk pc of x and of y.
+  const bool producer = __shfl_sync(0xffffffffu, tid >= kCons ? 1 : 0, 0) != 0;
+  const int ptid = tid - kCons;
+  const int pv = ptid % kVT, pc = ptid / kVT;
+  float pox[4], lx[4], poy[4], my[4];
 #pragma unroll
-    for (int p = 0; p < kPols; ++p) acc[p] = make_float2(0.0f, 0.0f);
-    for (int y = 0; y < N; ++y) {
-      float sy, cy;
-      sincosf(poy_s[y] - m[y] * vk, &sy, &cy);
-      const float2 phy = make_float2(cy, sy);
-#pragma unroll 8
-      for (int x = 0; x < N; ++x) {
-        const int q = y * N + x;
-        float2 ph = cmul(phx[x * kThreads], phy);
-        ph = cmul(ph, taylor_expi(mu_v * s_n[q], w_rank));
-        const float4 pa = s_pix[2 * q + 0];
-        const float4 pb = s_pix[2 * q + 1];
-        // acc += pix · conj(ph)
-        const float2 cph = make_float2(ph.x, -ph.y);
-        cmac(acc[0], make_float2(pa.x, pa.y), cph);
-        cmac(acc[1], make_float2(pa.z, pa.w), cph);
-        cmac(acc[2], make_float2(pb.x, pb.y), cph);
-        cmac(acc[3], make_float2(pb.z, pb.w), cph);
+  for (int i = 0; i < 4; ++i) pox[i] = lx[i] = poy[i] = my[i] = 0.0f;
+  if (producer) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int a = 4 * pc + i;
+      pox[i] = po_x[(size_t)s * N + a];
+      lx[i] = l[a];
+      poy[i] = po_y[(size_t)s * N + a];
+      my[i] = m[a];
+    }
+  }
+
+  // The prologue of the ranks [r0, r0 + nr): the fused form's subgrid,
+  // then per pixel taper and A1 · P · A2ᴴ (math.hpp:79-92), and the split
+  // lhs of each rank (n^r by r multiplies). A warp covers one core matrix
+  // (8 rows y × 4 columns x) per store: no bank conflicts.
+  auto prologue = [&](int r0, int nr) {
+    float2* s_sub = reinterpret_cast<float2*>(stages);
+    if constexpr (kFuse) {
+      float2* s_x = s_sub + kPols * nn;
+      float2* s_tmp = s_x + nn;
+      float2* s_wf = s_tmp + nn;
+      for (int e = tid; e < N * N; e += kThreads) s_wf[e] = wf[e];
+      // the roll is taken mod N, as the plain version takes it: no index leaves the tile
+      const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
+#pragma unroll 1
+      for (int p = 0; p < kPols; ++p) {
+        for (int e = tid; e < N * N; e += kThreads) {
+          const int y = e / N, x = e % N;
+          s_x[e] = sub_s[p * nn + ((y + oy) % N) * N + (x + ox) % N];
+        }
+        __syncthreads();
+        float2* sub_p = s_sub + p * nn;
+        dft2_tile<N, kThreads>(s_x, s_tmp, s_wf,
+                               [&](int k1, int k2, float2 v) { sub_p[k1 * N + k2] = v; });
+      }
+      __syncthreads();
+    }
+    for (int q = tid; q < N * N; q += kThreads) {
+      const int x = ((q >> 5) % (N / 4)) * 4 + (q & 3);
+      const int y = ((q >> 5) / (N / 4)) * 8 + ((q >> 2) & 7);
+      const int px = y * N + x;
+      const float taper = sph[px];
+      float2 p[kPols], o[kPols];
+#pragma unroll
+      for (int i = 0; i < kPols; ++i) {
+        const float2 v = kFuse ? s_sub[i * nn + px] : sub_s[i * nn + px];
+        p[i] = make_float2(v.x * taper, v.y * taper);
+      }
+      jones_degridder(aterms + (at1 + px) * kPols, aterms + (at2 + px) * kPols, p, o);
+      const float npx = n[px];
+      float np = 1.0f;
+      for (int r = 0; r < r0; ++r) np *= npx;
+      for (int i = 0; i < nr; ++i) {
+        if (i) np *= npx;
+        float* hi = reinterpret_cast<float*>(lhs + (size_t)i * TL::kBytesL);
+        float* lo = reinterpret_cast<float*>(lhs + (size_t)(group + i) * TL::kBytesL);
+        const bool three = three_tf32_passes(r0 + i, w_rank);
+#pragma unroll
+        for (int pol = 0; pol < kPols; ++pol) {
+          const int row = pol * N + y;
+          const int ore = core_index(row, x, TL::kKC), oim = core_index(row, N + x, TL::kKC);
+          float h, lw;
+          split_tf32(o[pol].x * np, h, lw);
+          hi[ore] = h;
+          if (three) lo[ore] = lw;
+          split_tf32(o[pol].y * np, h, lw);
+          hi[oim] = h;
+          if (three) lo[oim] = lw;
+        }
       }
     }
-    float4* o = reinterpret_cast<float4*>(out + ((size_t)s * V + v) * kPols);
-    o[0] = make_float4(acc[0].x, acc[0].y, acc[1].x, acc[1].y);
-    o[1] = make_float4(acc[2].x, acc[2].y, acc[3].x, acc[3].y);
+    fence_async_smem();
+    __syncthreads();
+  };
+
+  // One producer's share of a tile: Φx and Φy of its visibility at its 4 x
+  // and 4 y (0 past V, by selects). Φx goes split into the visibility's real
+  // column [Φx_re | Φx_im] and imaginary column [−Φx_im | Φx_re] of the rhs,
+  // Φy into the [v][y] table, μ into its row.
+  auto form = [&](int tile, int buf) {
+    unsigned char* st = stages + buf * TL::kStage;
+    float* r_hi = reinterpret_cast<float*>(st);
+    float* r_lo = reinterpret_cast<float*>(st + TL::kBytesR);
+    float2* phy = reinterpret_cast<float2*>(st + 2 * TL::kBytesR);
+    float* smu = reinterpret_cast<float*>(st + 2 * TL::kBytesR + TL::kBytesPhy);
+    const int v = tile * kVT + pv;
+    const bool live = v < V;
+    const int vc = min(v, V - 1), t = vc / C, c = vc - t * C;
+    const float kv = __ldg(k + c);
+    const float uk = __ldg(uvw_s + t * 3) * kv, vk = __ldg(uvw_s + t * 3 + 1) * kv;
+    float rh[4], rl[4], ih[4], il[4];
+    float2 py[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float sn, cs;
+      sincosf(pox[i] - lx[i] * uk, &sn, &cs);
+      split_tf32(live ? cs : 0.0f, rh[i], rl[i]);
+      split_tf32(live ? sn : 0.0f, ih[i], il[i]);
+      sincosf(poy[i] - my[i] * vk, &sn, &cs);
+      py[i] = live ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
+    }
+    const int re_x = core_index(pv, 4 * pc, TL::kKC), re_y = core_index(pv, N + 4 * pc, TL::kKC);
+    const int im_x = core_index(kVT + pv, 4 * pc, TL::kKC);
+    const int im_y = core_index(kVT + pv, N + 4 * pc, TL::kKC);
+    *reinterpret_cast<float4*>(r_hi + re_x) = make_float4(rh[0], rh[1], rh[2], rh[3]);
+    *reinterpret_cast<float4*>(r_hi + re_y) = make_float4(ih[0], ih[1], ih[2], ih[3]);
+    *reinterpret_cast<float4*>(r_hi + im_x) = make_float4(-ih[0], -ih[1], -ih[2], -ih[3]);
+    *reinterpret_cast<float4*>(r_hi + im_y) = make_float4(rh[0], rh[1], rh[2], rh[3]);
+    *reinterpret_cast<float4*>(r_lo + re_x) = make_float4(rl[0], rl[1], rl[2], rl[3]);
+    *reinterpret_cast<float4*>(r_lo + re_y) = make_float4(il[0], il[1], il[2], il[3]);
+    *reinterpret_cast<float4*>(r_lo + im_x) = make_float4(-il[0], -il[1], -il[2], -il[3]);
+    *reinterpret_cast<float4*>(r_lo + im_y) = make_float4(rl[0], rl[1], rl[2], rl[3]);
+    float4* prow = reinterpret_cast<float4*>(phy + pv * kLd + 4 * pc);
+    prow[0] = make_float4(py[0].x, py[0].y, py[1].x, py[1].y);
+    prow[1] = make_float4(py[2].x, py[2].y, py[3].x, py[3].y);
+    if (pc == 0) smu[pv] = live ? __ldg(mu_s + vc) : 0.0f;
+  };
+
+  // A tile's outputs [kVT][P]: the sums of the pol's warps (N / 16 of
+  // them), stored (first rank group) or added (the later ones).
+  auto store = [&](int tile, int buf, bool first) {
+    const float2* rb = red + (size_t)buf * TL::kConsWarps * kVT;
+    if (ptid < kVT * kPols) {
+      const int vl = ptid / kPols, p = ptid % kPols, v = tile * kVT + vl;
+      float2 total = rb[(p * (N / 16)) * kVT + vl];
+#pragma unroll
+      for (int h = 1; h < N / 16; ++h) total = cadd(total, rb[(p * (N / 16) + h) * kVT + vl]);
+      if (v < V) {
+        float2* o = out_s + (size_t)v * kPols + p;
+        *o = first ? total : cadd(*o, total);
+      }
+    }
+  };
+
+  // the consumer's rows (p, y0) and (p, y0 + 8) of the lhs, its visibility
+  // slots 8j + 2·t4 + e (j < 4, e < 2) and its warpgroup's slab. In the
+  // accumulators, entry i < 16 (row y0 + 8·((i >> 1) & 1), slot
+  // 2·(i >> 2) + (i & 1)) holds D_re in register i and D_im in 16 + i.
+  const int lane = tid & 31, cw = tid / 32, t4 = lane & 3;
+  const int y0 = (16 * cw + (lane >> 2)) % N;
+  const int wg = tid / 128;
+  float sum[32], acc[32];   // Σ_r conj(c_r)·D_r, and one rank's D_r
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sum[i] = acc[i] = 0.0f;
+
+  // The products of ranks [r0, r0 + nr) on the tile in stage buf, and stage
+  // 2: rank r0's product accumulates in `sum` itself, every later rank's in
+  // `acc`, added to `sum` times conj(c_r) = (−i)^r·μ^r/r! (two FMAs an
+  // entry); Φy then multiplies the rank sum once.
+  auto consume = [&](int buf, int r0, int nr) {
+    const unsigned char* st = stages + buf * TL::kStage;
+    const float2* phy = reinterpret_cast<const float2*>(st + 2 * TL::kBytesR);
+    const float* smu = reinterpret_cast<const float*>(st + 2 * TL::kBytesR + TL::kBytesPhy);
+    auto issue = [&](int i, float(&d)[32]) {
+      fence_regs(d);
+      wgmma_fence();
+      if (three_tf32_passes(r0 + i, w_rank)) {
+        mma_rank<N, true>(lhs, st, wg, i, group, d);
+      } else {
+        mma_rank<N, false>(lhs, st, wg, i, group, d);
+      }
+      wgmma_commit();
+    };
+    // the first two ranks' products go in flight together
+    issue(0, sum);
+    if (nr > 1) issue(1, acc);
+    float mu_v[8], w[8];   // μ of each slot, and μ^r / r!
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mu_v[i] = smu[8 * (i >> 1) + 2 * t4 + (i & 1)];
+      w[i] = 1.0f;
+    }
+    for (int r = 1; r <= r0; ++r) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) w[i] *= mu_v[i] * __fdividef(1.0f, (float)r);
+    }
+    wgmma_wait<0>();
+    fence_regs(sum);
+    fence_regs(acc);
+    if (r0 > 0) rotate_scale<false>(sum, sum, w, r0);
+    for (int i = 1; i < nr; ++i) {
+      const int r = r0 + i;
+      if (i > 1) {
+        issue(i, acc);
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[k] *= mu_v[k] * __fdividef(1.0f, (float)r);
+      rotate_scale<true>(sum, acc, w, r);
+    }
+    // Σ over the thread's two rows of conj(Φy) · sum, per slot
+    float2 part[8];
+#pragma unroll
+    for (int sl = 0; sl < 8; ++sl) {
+      const int j = sl >> 1, e = sl & 1, v = 8 * j + 2 * t4 + e;
+      const int i0 = 4 * j + e, i1 = i0 + 2;
+      part[sl] = cadd(cmul_conj(phy[v * kLd + y0], make_float2(sum[i0], sum[16 + i0])),
+                      cmul_conj(phy[v * kLd + y0 + 8], make_float2(sum[i1], sum[16 + i1])));
+    }
+    const int g = lane >> 2;
+    red[((size_t)buf * TL::kConsWarps + cw) * kVT + 8 * (g >> 1) + 2 * t4 + (g & 1)] =
+        reduce_slots(part, lane);
+  };
+
+  // The ranks in groups that fit shared memory (one group up to rank 2);
+  // per group: the prologue, then tile j multiplied while tile j + 1 is
+  // formed and tile j − 1 stored, one barrier a tile.
+  const int ngroups = (w_rank + group - 1) / group;
+  for (int gi = 0; gi < ngroups; ++gi) {
+    const int r0 = gi * group, nr = min(group, w_rank - r0);
+    prologue(r0, nr);
+    if (producer) {
+      form(0, 0);
+      fence_async_smem();
+    }
+    __syncthreads();
+    for (int j = 0; j < nt; ++j) {
+      if (producer) {
+        if (j > 0) store(j - 1, (j - 1) & 1, gi == 0);
+        if (j + 1 < nt) form(j + 1, (j + 1) & 1);
+        fence_async_smem();
+      } else {
+        consume(j & 1, r0, nr);
+      }
+      __syncthreads();
+    }
+    if (producer) store(nt - 1, (nt - 1) & 1, gi == 0);
   }
 }
 
@@ -179,14 +477,29 @@ cudaError_t launch(const float* uvw, const float* mu, const float* k, const floa
                    const int* station1, const int* station2, const float2* subgrids,
                    const int* oyx, const float2* wf, float2* out, int S, int T, int C,
                    int nr_stations, int w_rank, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<N>();
-  // above 48 KB a block's dynamic shared memory has to be opted into
-  cudaError_t err = cudaFuncSetAttribute(
-      degridder_kernel<N, kFuse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  using TL = Tile<N>;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
   if (err != cudaSuccess) return err;
-  degridder_kernel<N, kFuse><<<S, kThreads, bytes, stream>>>(
+  // up to rank 2 the hi of each rank and the lo of rank 0 beside the two
+  // stages; above it every rank takes hi and lo, in groups of as many ranks
+  // as fit (all six at N = 16, two at N = 32)
+  const size_t fixed = 2 * TL::kStage + TL::kBytesRed;
+  const int group = w_rank <= 2
+      ? w_rank
+      : min(w_rank, (int)(((size_t)optin - fixed) / (2 * TL::kBytesL)));
+  const int nlo = w_rank > 2 ? group : 1;
+  const size_t bytes = (size_t)(group + nlo) * TL::kBytesL + fixed;
+  if (group < 1 || bytes > (size_t)optin) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(degridder_kernel<N, kFuse>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  degridder_kernel<N, kFuse><<<S, TL::kThreads, bytes, stream>>>(
       uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
-      subgrids, oyx, wf, out, T, C, nr_stations, w_rank);
+      subgrids, oyx, wf, out, T, C, nr_stations, w_rank, group);
   return cudaGetLastError();
 }
 

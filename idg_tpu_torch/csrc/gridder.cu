@@ -109,24 +109,6 @@ struct Tile {
   static_assert(kEpilogueBytes <= 2 * (size_t)kBytesW, "the epilogue fits a stage");
 };
 
-// Whether rank r takes three TF32 passes (else hi·hi alone).
-__device__ __forceinline__ bool three_passes(int r, int w_rank) {
-  return r == 0 || w_rank > 2;
-}
-
-// One rank's products of one k8 step into acc.
-template <bool kThree, int K>
-__device__ __forceinline__ void rank_step(float (&acc)[K], int first, uint64_t a_hi,
-                                          uint64_t a_lo, uint64_t b_hi, uint64_t b_lo) {
-  if constexpr (kThree) {
-    idg::wgmma_tf32(acc, a_lo, b_hi, first ? 0 : 1);
-    idg::wgmma_tf32(acc, a_hi, b_lo, 1);
-    idg::wgmma_tf32(acc, a_hi, b_hi, 1);
-  } else {
-    idg::wgmma_tf32(acc, a_hi, b_hi, first ? 0 : 1);
-  }
-}
-
 // Rank r's products over one tile of the stage at `stage`, this
 // warpgroup's slab, into acc (three TF32 passes, or hi·hi alone), inside the
 // caller's commit group.
@@ -139,10 +121,10 @@ __device__ __forceinline__ void mma_rank(const unsigned char* stage, int slab, i
 #pragma unroll
   for (int ks = 0; ks < kKT / 8; ++ks) {
     const int off = ks * 2 * 128;   // two K chunks a k8 step
-    rank_step<kThree>(acc, ks == 0, idg::smem_desc(w_hi + off, kLBO, kSBO),
-                      idg::smem_desc(w_hi + TL::kBytesW + off, kLBO, kSBO),
-                      idg::smem_desc(l_hi + off, kLBO, kSBO),
-                      idg::smem_desc(l_hi + (size_t)w_rank * TL::kBytesL + off, kLBO, kSBO));
+    idg::mma_tf32_step<kThree>(
+        acc, ks == 0, idg::smem_desc(w_hi + off, kLBO, kSBO),
+        idg::smem_desc(w_hi + TL::kBytesW + off, kLBO, kSBO), idg::smem_desc(l_hi + off, kLBO, kSBO),
+        idg::smem_desc(l_hi + (size_t)w_rank * TL::kBytesL + off, kLBO, kSBO));
   }
 }
 
@@ -311,7 +293,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
         float* hi = l_hi + (size_t)r * TL::kBytesL / 4;
         *reinterpret_cast<float4*>(hi + re) = make_float4(rh[0], rh[1], rh[2], rh[3]);
         *reinterpret_cast<float4*>(hi + im) = make_float4(ih[0], ih[1], ih[2], ih[3]);
-        if (three_passes(r, w_rank)) {
+        if (idg::three_tf32_passes(r, w_rank)) {
           float* lo = l_lo + (size_t)r * TL::kBytesL / 4;
           *reinterpret_cast<float4*>(lo + re) = make_float4(rl[0], rl[1], rl[2], rl[3]);
           *reinterpret_cast<float4*>(lo + im) = make_float4(il[0], il[1], il[2], il[3]);
@@ -358,7 +340,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
       for (int r = 0; r < w_rank; ++r) {
         fence_regs(acc);
         wgmma_fence();
-        if (three_passes(r, w_rank)) {
+        if (idg::three_tf32_passes(r, w_rank)) {
           mma_rank<N, true>(stage, slab, r, w_rank, acc);
         } else {
           mma_rank<N, false>(stage, slab, r, w_rank, acc);

@@ -1,6 +1,7 @@
-// Hopper helpers of the TF32 tensor-core gridder (gridder.cu): the TF32
-// split of a float32 value, shared-memory matrix descriptors, `wgmma` on
-// TF32 operands with its fences, and `cp.async` copies into shared memory.
+// Hopper helpers of the TF32 tensor-core gridder and degridder (gridder.cu,
+// degridder.cu): the TF32 split of a float32 value, shared-memory matrix
+// descriptors, `wgmma` on TF32 operands with its fences and its three-pass
+// split product, and `cp.async` copies into shared memory.
 //
 // Operand layout (both operands K-major, the only layout TF32 `wgmma`
 // takes; no swizzle): a [rows][K] tile is stored as 8×16 B core matrices,
@@ -103,6 +104,27 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t 
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Whether Taylor rank r of a rank-w_rank product takes three TF32 passes
+// (else hi·hi alone): rank 0 always, every rank of an escalated rank
+// (ops/precision.py: "3xtf32", one pass for rank 1 at rank ≤ 2).
+__device__ __forceinline__ bool three_tf32_passes(int r, int w_rank) {
+  return r == 0 || w_rank > 2;
+}
+
+// One k8 step of a split product into d: lo·hi + hi·lo + hi·hi (kThree),
+// or hi·hi alone; `first` overwrites d.
+template <bool kThree, int K>
+__device__ __forceinline__ void mma_tf32_step(float (&d)[K], bool first, uint64_t a_hi,
+                                              uint64_t a_lo, uint64_t b_hi, uint64_t b_lo) {
+  if constexpr (kThree) {
+    wgmma_tf32(d, a_lo, b_hi, first ? 0 : 1);
+    wgmma_tf32(d, a_hi, b_lo, 1);
+    wgmma_tf32(d, a_hi, b_hi, 1);
+  } else {
+    wgmma_tf32(d, a_hi, b_hi, first ? 0 : 1);
+  }
 }
 
 // Asynchronous copies of 16 and 4 bytes, global → shared.

@@ -1,5 +1,6 @@
-"""Degridder `cuda_v7`: the hand-written CUDA kernel (csrc/degridder.cu)
-and its plain PyTorch version, on uv subgrids or, with `fuse_oyx`, on the
+"""Degridder `cuda_v7`: the hand-written CUDA kernel K2 (csrc/degridder.cu,
+the pol-stacked product on the TF32 tensor cores) and its plain PyTorch
+version, on uv subgrids or, with `fuse_oyx`, on the
 range extraction's block-rolled pieces (the fused grid-stage prologue).
 
 `degridder_cuda_v7` dispatches on the device of the staging it is given: a
@@ -68,9 +69,9 @@ def degridder_plain(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
 
 @register(
     "degridder", "cuda_v7",
-    "CUDA C++ FP32 separable-phasor degridder (one block per subgrid, "
-    "threads own visibilities, rank-w Taylor of e^{-iμn}); counterpart of "
-    "pallas_v7",
+    "CUDA C++ pol-stacked separable-phasor degridder, the product on the TF32 "
+    "tensor cores (wgmma, three passes; exact per-channel sincos, rank-w "
+    "Taylor of e^{-iμn}); counterpart of pallas_v7",
     family="cuda", uniform_channels=False,
 )
 def degridder_cuda_v7(params: IDGParams, stg: Staged, subgrids: torch.Tensor,

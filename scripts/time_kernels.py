@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
-"""Time the port's gridder K1 (both forms), the direct gridder cuda_v2 and
-K10 (vadd) of one checkout on one CUDA card, for A/B comparisons of two
-versions of the kernels.
+"""Time the port's gridder K1 (both forms), degridder K2 (both forms), the
+direct gridder cuda_v2 and K10 (vadd) of one checkout on one CUDA card, for
+A/B comparisons of two versions of the kernels.
 
-    python scripts/time_kernels.py ROOT TAG [k1,v2,vadd]
+    python scripts/time_kernels.py ROOT TAG [k1,k2,v2,vadd]
 
 ROOT is a checkout of the repository (the current one, or the parent commit
 unpacked with `git archive` into a directory that .gitignore lists); its
 kernels are built into ROOT/idg_tpu_torch/_build. It prints the ptxas
-registers and spills of K1's instances, then for each chosen kernel its
-error against its plain version on the first 512 subgrids of the default
-problem (vadd: exact, at n = 2^28) and its time on the full problem (min
-over windows of back-to-back launches), vadd with one torch.add beside it;
-each line prefixed with TAG. Compare two checkouts in one call, in turns:
-parent, change, change, parent.
+registers and spills of K1's and K2's instances, then for each chosen
+kernel its error against its plain version on the first 512 subgrids of the
+default problem (vadd: exact, at n = 2^28) and its time on the full problem
+(min over windows of back-to-back launches), vadd with one torch.add beside
+it; each line prefixed with TAG. Compare two checkouts in one call, in
+turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -25,12 +25,13 @@ import time
 
 def main(argv) -> int:
     root, tag = argv[1], argv[2]
-    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "v2", "vadd"]
+    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "v2", "vadd"]
     sys.path.insert(0, root)
+    import numpy as np
     import torch
 
     from idg_tpu_torch.config import HarnessConfig, IDGParams
-    from idg_tpu_torch.data import make_perf_observation
+    from idg_tpu_torch.data import initialize_subgrids, make_perf_observation
     from idg_tpu_torch.ops import cuda as kernels
     from idg_tpu_torch.ops import grid as tgrid
     from idg_tpu_torch.ops import vadd as tvadd
@@ -47,18 +48,19 @@ def main(argv) -> int:
     print(f"{tag} build {time.perf_counter() - t0:.1f} s", flush=True)
     lines = build.build_log.splitlines()
     for i, line in enumerate(lines):
-        kernel = re.search(r"\d+gridder_kernelILi(\d+)ELb(\d)E", line)
-        if "Compiling entry" in line and kernel:
-            form = "fused" if kernel.group(2) == "1" else "non-fused"
-            print(f"{tag} ptxas K1 N = {kernel.group(1)} {form} |",
-                  " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
+        for label, stem in (("K1", "gridder"), ("K2", "degridder")):
+            kernel = re.search(rf"\d+{stem}_kernelILi(\d+)ELb(\d)E", line)
+            if "Compiling entry" in line and kernel:
+                form = "fused" if kernel.group(2) == "1" else "non-fused"
+                print(f"{tag} ptxas {label} N = {kernel.group(1)} {form} |",
+                      " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
 
     harness = HarnessConfig(nr_warm_up_runs=1, nr_iterations=3, nr_windows=3)
 
     def ms(fn, *args):
         return time_kernel(fn, *args, harness=harness).seconds * 1e3
 
-    if {"k1", "v2"} & set(chosen):
+    if {"k1", "k2", "v2"} & set(chosen):
         params = IDGParams.from_env()
         obs = make_perf_observation(params)
         md = obs.metadata
@@ -75,6 +77,19 @@ def main(argv) -> int:
                 ("gridder_cuda_v6_pieces", kernels.gridder_cuda_v6_pieces,
                  kernels.gridder_v6_pieces_plain, (params, small, oyx[:k], 2),
                  (params, stg, oyx, 2)),
+            ]
+        if "k2" in chosen:
+            sub = torch.as_tensor(np.ascontiguousarray(initialize_subgrids(
+                params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
+            pieces = tgrid.pieces_from_subgrids(sub, oyx)
+            cases += [
+                ("degridder_cuda_v7", kernels.degridder_cuda_v7, kernels.degridder_plain,
+                 (params, small, sub[:k], 2), (params, stg, sub, 2)),
+                ("degridder_cuda_v7_fused",
+                 lambda p, s, sb, r, o: kernels.degridder_cuda_v7(p, s, sb, r, fuse_oyx=o),
+                 lambda p, s, sb, r, o: kernels.degridder_plain(
+                     p, s, tgrid._finish_extract(sb, o), r),
+                 (params, small, pieces[:k], 2, oyx[:k]), (params, stg, pieces, 2, oyx)),
             ]
         if "v2" in chosen:
             cases.append(("gridder_cuda_v2", kernels.gridder_cuda_v2,

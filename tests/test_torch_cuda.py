@@ -51,13 +51,19 @@ def _inputs(n, channels, w_scale):
 @pytest.mark.parametrize("n,channels,w_scale", [
     (16, 8, None), (32, 7, None), (16, 8, 1000.0), (32, 16, 1000.0),
     (16, 48, None), (32, 48, None), (16, 3, None), (32, 16, "non-uniform"),
+    (32, 7, "ragged"), (16, 7, "ragged"),
 ])
 def test_kernels_match_plain_and_oracle(card, n, channels, w_scale):
-    """K1 (TF32 wgmma) and K2 against their plain versions and the oracle:
-    w = 0, rank 4 (w_scale 1000), 48 channels, a ragged V (T·C = 112 and 48
-    are not multiples of K1's 32-visibility tile) and non-uniform
-    wavenumbers, which K1 and K2 take with no fallback."""
-    if w_scale == "non-uniform":
+    """K1 and K2 (TF32 wgmma) against their plain versions and the oracle:
+    w = 0, rank 4 (w_scale 1000), 48 channels, a ragged V (T·C = 112, 48
+    and 37·7 are not multiples of the kernels' 32-visibility tile) and
+    non-uniform wavenumbers, which K1 and K2 take with no fallback."""
+    if w_scale == "ragged":
+        params = IDGParams(subgrid_size=n, nr_channels=channels,
+                           **dict(SMALL, nr_timesteps_subgrid=37))
+        obs, sub = make_observation(params, include_subgrids=True)
+        sub, rank = np.ascontiguousarray(sub), _resolve("gridder", "cuda_v6", params, obs)[1] or 2
+    elif w_scale == "non-uniform":
         params, obs, sub, rank = _inputs(n, channels, None)
         k = np.array(obs.wavenumbers, copy=True)
         k[-1] *= 1.05
@@ -80,6 +86,27 @@ def test_kernels_match_plain_and_oracle(card, n, channels, w_scale):
                        verbose=False).mean_error <= GATE
     assert check_error(got, degridder_reference(params, obs, sub),
                        verbose=False).mean_error <= GATE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 6])
+def test_k2_matches_plain_at_every_rank(card, n, rank):
+    """K2, both forms, against its plain version at every Taylor rank on
+    w ≠ 0 data: at N = 32 above rank 2 the kernel walks the tiles once per
+    group of two ranks and adds the groups' visibilities."""
+    params, obs, sub, _ = _inputs(n, 7, 1000.0)
+    md = obs.metadata
+    oyx = torch.from_numpy(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size, n))
+    pieces = tgrid.pieces_from_subgrids(torch.from_numpy(sub), oyx)
+    stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
+    want = kernels.degridder_plain(params, stg_cpu, torch.from_numpy(sub), rank)
+    got = kernels.degridder_cuda_v7(params, stg_gpu, torch.from_numpy(sub).to(card), rank)
+    got_f = kernels.degridder_cuda_v7(params, stg_gpu, pieces.to(card), rank,
+                                      fuse_oyx=oyx.to(card))
+    torch.cuda.synchronize()
+    _gate(got, want)
+    _gate(got_f, want)
 
 
 @pytest.mark.cuda

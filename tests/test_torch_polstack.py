@@ -195,8 +195,9 @@ def test_bench_leaves_out_the_pipeline_of_an_unfused_gridder(small_params, capsy
 @pytest.mark.parametrize("workload,version,unit", [
     ("degridder", "cuda_v6", "bf16"), ("gridder", "cuda_v4", "bf16"),
     ("degridder", "cuda_v5", "bf16"), ("gridder", "cuda_v6", "tf32"),
-    ("degridder", "cuda_v7", "fp32"), ("gridder", "cuda_v3", "fp32"),
+    ("degridder", "cuda_v7", "tf32"), ("gridder", "cuda_v3", "fp32"),
     ("gridder", "cuda_v7", "tf32"), ("gridder", "cuda_v2", "fp32"),
+    ("degridder", "cuda_v8", "tf32"), ("degridder", "cuda_v2", "fp32"),
 ])
 def test_roofline_takes_the_unit_of_the_rung(workload, version, unit):
     assert roofline.unit(workload, version) == unit
@@ -216,14 +217,15 @@ def test_roofline_bound_and_unknown_device():
     assert roofline.bound_seconds(989e12, 3.35e12, "bf16") == (pytest.approx(1.0), "bytes")
 
 
-def test_roofline_bounds_k1_on_the_tf32_peak():
-    """K1's bound: the reference's operation model of one pass at the default
-    problem (1.779·10¹² FLOP) over 495 TFLOP/s, 3.594 ms; the fused form
-    adds the grid stage's inverse DFT, 3.699 ms."""
+@pytest.mark.parametrize("workload,version", [("gridder", "cuda_v6"), ("degridder", "cuda_v7")])
+def test_roofline_bounds_k1_on_the_tf32_peak(workload, version):
+    """K1's and K2's bound: the reference's operation model of one pass at
+    the default problem (1.779·10¹² FLOP) over 495 TFLOP/s, 3.594 ms; the
+    fused form adds the grid stage's (i)DFT, 3.699 ms."""
     params = tcfg.IDGParams()
     flops = workload_costs(params)[0] * 1e9
     fused = flops + grid_costs(params)[0] * 1e9
-    unit = roofline.unit("gridder", "cuda_v6")
+    unit = roofline.unit(workload, version)
     assert roofline.PEAK_FLOP_PER_S[unit] == 495e12
     seconds, by = roofline.bound_seconds(flops, 2.4e9, unit)
     assert by == "operations" and seconds * 1e3 == pytest.approx(3.594, abs=1e-3)

@@ -104,20 +104,25 @@ def test_dot_mixed_matches_jax(mode):
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
-# K1's product per rank, lhs_r [2N × V] · W [V × 2NP] at V = 2048, N = 32 and 16
-K1_TILES = [(64, 256), (32, 128)]
+# the products per rank, [rows × depth] · [depth × cols]: K1's lhs_r [2N × V]
+# · W [V × 2NP] and K2's lhs_r [4N × 2N] · rhs [2N × V], at V = 2048, N = 32
+# and 16
+TF32_PRODUCTS = [
+    pytest.param(64, 256, 2048, id="64-256"), pytest.param(32, 128, 2048, id="32-128"),
+    pytest.param(128, 2048, 64, id="k2-n32"), pytest.param(64, 2048, 32, id="k2-n16"),
+]
 
 
-@pytest.mark.parametrize("rows,cols", K1_TILES)
-def test_3xtf32_is_within_2e20_of_float64(rows, cols):
-    """"3xtf32", the gridder K1's product (three TF32 passes), at K1's tile
-    shapes on phasor-like operands: within 2⁻²⁰ of the float64 product in
-    normwise relative error (its lo·lo term and lo's rounding are ~2⁻²²,
-    float32's accumulation the rest), and closer than "3x2k" (bf16 splits
-    keep 2⁻¹⁷)."""
-    rng = np.random.default_rng(rows)
-    lhs = np.cos(rng.uniform(0.0, 2 * np.pi, (rows, 2048)))
-    w = np.cos(rng.uniform(0.0, 2 * np.pi, (2048, cols))) * rng.normal(size=(2048, cols))
+@pytest.mark.parametrize("rows,cols,depth", TF32_PRODUCTS)
+def test_3xtf32_is_within_2e20_of_float64(rows, cols, depth):
+    """"3xtf32", the product of the gridder K1 and the degridder K2 (three
+    TF32 passes), at their shapes on phasor-like operands: within 2⁻²⁰ of
+    the float64 product in normwise relative error (its lo·lo term and lo's
+    rounding are ~2⁻²², float32's accumulation the rest), and closer than
+    "3x2k" (bf16 splits keep 2⁻¹⁷)."""
+    rng = np.random.default_rng(rows + depth)
+    lhs = np.cos(rng.uniform(0.0, 2 * np.pi, (rows, depth)))
+    w = np.cos(rng.uniform(0.0, 2 * np.pi, (depth, cols))) * rng.normal(size=(depth, cols))
     a, b = (torch.from_numpy(x.astype(np.float32)) for x in (lhs, w))
     want = lhs.astype(np.float32).astype(np.float64) @ w.astype(np.float32).astype(np.float64)
 
