@@ -56,11 +56,16 @@ non-zero:
               direct versions and `vadd` with and without --cuda, with
               counted launches, and the phase's seconds
  10. separable the separable rungs cuda_v3 / cuda_v4 / cuda_v5 of both
-              workloads (K8b, K8c, K9b, K9c; v4/v5 on the tensor cores):
-              ptxas registers and spills of every instance; each rung
-              against the f64 oracle at w = 0 and at rank 4 (w_scale 1000),
-              and cuda_v5 on non-uniform wavenumbers resolving to cuda_v4,
-              with counted launches; each kernel against its plain version
+              workloads (K8b, K8c, K9b, K9c; v4 on bf16 wgmma, v5 on bf16
+              mma.sync): ptxas registers and spills of every instance (each
+              must be there) and the cuobjdump HGMMA count of every v4
+              instance (each must have some); each rung against the f64
+              oracle at w = 0 (v3/v4 within 10% of their earlier errors,
+              SEPARABLE_W0_ERRORS), at rank 4 (w_scale 1000) and on a
+              ragged V = 37·7, and cuda_v5 on non-uniform wavenumbers
+              resolving to cuda_v4, with counted launches; v3 and v4
+              against their plain versions at every rank 1–6 (N = 16 and
+              32, small problem); each kernel against its plain version
               on the first 512 default subgrids (1e-5 gate), then timed both
               ways on the full problem (the plain version one call); then
               this slice's main path, perf mode for the six versions with
@@ -128,6 +133,11 @@ K1_ORACLE_GATE = 4e-6  # K1 (TF32, three passes) against the f64 oracle
 K1_PLAIN_GATE = 3e-6   # K1 against its float32 plain version, 512 default subgrids
 K2_ORACLE_GATE = 4e-6  # K2 (TF32, three passes) against the f64 oracle
 K2_PLAIN_GATE = 3e-6   # K2 against its float32 plain version, 512 default subgrids
+# the separable rungs' mean errors against the f64 oracle at w = 0 before
+# their redesign (NVIDIA H100 80GB HBM3, 700 W); the redesigned kernels stay
+# within 10% of them
+SEPARABLE_W0_ERRORS = {("gridder", "cuda_v3"): 2.673e-06, ("gridder", "cuda_v4"): 2.775e-06,
+                       ("degridder", "cuda_v3"): 6.824e-07, ("degridder", "cuda_v4"): 7.024e-06}
 
 
 def tensor_bytes(*objs) -> int:
@@ -806,8 +816,10 @@ def direct_phase(rows, timing):
 
 def separable_phase(rows, timing):
     """Phase 10: the separable rungs cuda_v3/v4/v5 of both workloads (K8b,
-    K8c, K9b, K9c): against the f64 oracle at w = 0 and at rank 4, cuda_v5's
-    fallback to cuda_v4 on non-uniform channels, each kernel against its
+    K8c, K9b, K9c): ptxas lines of every instance and HGMMA counts of the
+    v4 ones; against the f64 oracle at w = 0, at rank 4 and on a ragged V,
+    cuda_v5's fallback to cuda_v4 on non-uniform channels; v3 and v4
+    against their plain versions at every rank; each kernel against its
     plain version and timed, then perf mode for the six versions with
     counted launches."""
     import dataclasses
@@ -831,52 +843,99 @@ def separable_phase(rows, timing):
     from idg_tpu_torch.utils.costs import workload_costs
 
     t_start = time.perf_counter()
+    # ptxas's lines of every instance (rung × N), and the HGMMA count of
+    # each cuda_v4 instance: all twelve must be there, and v4 must run on
+    # the tensor cores' wgmma
+    stem = re.compile(r"(degridder|gridder)_sep_v(\d)_kernelILi(\d+)E")
     lines = build.build_log.splitlines()
+    ptxas = {}
     for i, line in enumerate(lines):
-        kernel = re.search(r"(degridder|gridder)_separable_kernelILi(\d+)ELb(\d)ELb(\d)", line)
-        if "Compiling entry" in line and kernel:
-            workload, n, bf16, recur = kernel.groups()
-            rung = "cuda_v5" if recur == "1" else "cuda_v4" if bf16 == "1" else "cuda_v3"
-            phase("separable", f"ptxas {workload} {rung} N = {n}: "
-                               + " | ".join(x.strip() for x in lines[i + 2:i + 4]))
+        found = stem.search(line)
+        if "Compiling entry" in line and found:
+            ptxas[found.groups()] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+    hgmma = {stem.search(name).groups(): count
+             for name, count in sass_counts(str(build.build()), stem.pattern, "HGMMA").items()}
+    for workload, version in SEPARABLE:
+        for n in ("16", "32"):
+            key = (workload, version[-1], n)
+            phase("separable", f"ptxas {workload} {version} N = {n}: "
+                               f"{ptxas.get(key, 'missing')}; {hgmma.get(key, 0)} HGMMA")
+            if key not in ptxas or (version == "cuda_v4") != (hgmma.get(key, 0) > 0):
+                raise RuntimeError(f"{workload} {version} N = {n}: instance missing, or "
+                                   f"HGMMA where none belongs ({hgmma.get(key, 0)})")
 
     # against the f64 oracle on the correctness problem: w = 0, rank 4
-    # (w_scale 1000), and cuda_v5 on non-uniform wavenumbers, which must
-    # resolve to cuda_v4 and launch its kernel
+    # (w_scale 1000), a ragged V (T = 37, C = 7), and cuda_v5 on non-uniform
+    # wavenumbers, which must resolve to cuda_v4 and launch its kernel
     params = IDGParams.correctness_defaults()
     obs0, _ = make_observation(params)
     sub = initialize_subgrids(params.nr_subgrids, params.nr_correlations, params.subgrid_size)
     params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+    params_r = dataclasses.replace(params, nr_timesteps_subgrid=37, nr_channels=7)
+    obs_r, _ = make_observation(params_r)
     k = np.array(obs0.wavenumbers, copy=True)
     k[-1] *= 1.05
     obs_nu = dataclasses.replace(obs0, wavenumbers=k)
     checks = [(w, v, label, p, o, v) for w, v in SEPARABLE
-              for label, p, o in (("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w))]
+              for label, p, o in (("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w),
+                                  ("ragged V = 37·7", params_r, obs_r))]
     checks += [(w, "cuda_v5", "non-uniform channels", params, obs_nu, "cuda_v4")
                for w in ("gridder", "degridder")]
     for workload, version, label, p, obs, resolves_to in checks:
         kernels.reset_launch_counts()
+        sb = sub if p is not params_r else initialize_subgrids(
+            p.nr_subgrids, p.nr_correlations, p.subgrid_size)
         with warnings.catch_warnings(record=True) as record:
             warnings.simplefilter("always")
             resolved = _resolve(workload, version, p, obs)
             if workload == "gridder":
                 got, want = run_gridder(p, obs, version, device="cuda"), gridder_reference(p, obs)
             else:
-                got = run_degridder(p, obs, sub, version, device="cuda")
-                want = degridder_reference(p, obs, sub)
+                got = run_degridder(p, obs, sb, version, device="cuda")
+                want = degridder_reference(p, obs, sb)
         torch.cuda.synchronize()
         launched = {name: n for name, n in launch_counts().items() if n}
         res = check_error(got, want, verbose=False)
+        earlier = SEPARABLE_W0_ERRORS.get((workload, version)) if label == "w=0" else None
         ok = (res.passed and resolved[0] == resolves_to
               and launched == {f"{workload}_{resolves_to}": 1}
               and (resolved[1] or 2) >= (4 if "rank 4" in label else 2)
               and any("uniform channel" in str(w.message) for w in record) == (
-                  resolves_to != version))
+                  resolves_to != version)
+              and (earlier is None or res.mean_error <= 1.1 * earlier))
+        vs = "" if earlier is None else f", {res.mean_error / earlier:.3f}x the earlier {earlier:.3e}"
         phase("separable", f"{workload} {version} {label}: resolved {resolved}, mean_error "
-                           f"{res.mean_error:.3e} (gate {GATE:g}), launches {launched} "
+                           f"{res.mean_error:.3e} (gate {GATE:g}{vs}), launches {launched} "
                            f"{'PASSED' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError(f"{workload} {version} {label} failed")
+
+    # v3 and v4 against their plain versions at every rank 1–6 on a small
+    # w ≠ 0 problem, N = 16 and 32 (the kernels group the ranks)
+    for n in (16, 32):
+        p = IDGParams(grid_size=128, subgrid_size=n, nr_stations=3, nr_timeslots=2,
+                      nr_timesteps_subgrid=16, nr_channels=7)
+        p, obs, sb = make_w_observation(p, w_scale=1000.0, include_subgrids=True)
+        stg_g, stg_c = stage(p, obs, "cuda"), stage(p, obs, "cpu")
+        sb_c = torch.as_tensor(np.ascontiguousarray(sb))
+        worst = 0.0
+        for rank in range(1, 7):
+            for workload, version in SEPARABLE:
+                if version == "cuda_v5":
+                    continue
+                kernel = getattr(kernels, f"{workload}_{version}")
+                if workload == "gridder":
+                    got, want = kernel(p, stg_g, rank), kernel(p, stg_c, rank)
+                else:
+                    got, want = kernel(p, stg_g, sb_c.cuda(), rank), kernel(p, stg_c, sb_c, rank)
+                torch.cuda.synchronize()
+                err = check_error(got, want, verbose=False).mean_error
+                worst = max(worst, err)
+                if err > GATE:
+                    raise RuntimeError(f"{workload} {version} N = {n} rank {rank} disagrees "
+                                       f"with its plain version: {err:.3e}")
+        phase("separable", f"v3, v4 vs plain at every rank 1-6, N = {n}: worst mean_error "
+                           f"{worst:.3e} (gate {GATE:g}) PASSED")
 
     # each kernel against its plain version on the first 512 default
     # subgrids, then both timed on the full problem (the plain version one
@@ -887,16 +946,18 @@ def separable_phase(rows, timing):
         params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
     small = slice_staged(stg, 0, COMPARE_SUBGRIDS)
     plain_once = HarnessConfig(nr_warm_up_runs=0, nr_iterations=1, nr_windows=1)
-    sources = {"gridder": ("idg_tpu_torch/csrc/gridder_separable.cu",
-                           {"cuda_v5": "idg_tpu/ops/pallas/gridder.py:708"},
-                           "idg_tpu/ops/pallas/gridder.py:525"),
-               "degridder": ("idg_tpu_torch/csrc/degridder_separable.cu",
-                             {"cuda_v5": "idg_tpu/ops/pallas/degridder.py:559"},
-                             "idg_tpu/ops/pallas/degridder.py:307")}
+    sources = {"cuda_v3": "idg_tpu_torch/csrc/{}_sep_fp32.cu",
+               "cuda_v4": "idg_tpu_torch/csrc/{}_sep_bf16.cu",
+               "cuda_v5": "idg_tpu_torch/csrc/{}_separable.cu"}
+    replaced = {"gridder": ({"cuda_v5": "idg_tpu/ops/pallas/gridder.py:708"},
+                            "idg_tpu/ops/pallas/gridder.py:525"),
+                "degridder": ({"cuda_v5": "idg_tpu/ops/pallas/degridder.py:559"},
+                              "idg_tpu/ops/pallas/degridder.py:307")}
     cases = []
     for workload, version in SEPARABLE:
         kernel = getattr(kernels, f"{workload}_{version}")
-        source, special, replaces = sources[workload]
+        source = sources[version].format(workload)
+        special, replaces = replaced[workload]
         rec = version == "cuda_v5"
         prec = plain_precisions(version, 2)
         if workload == "gridder":

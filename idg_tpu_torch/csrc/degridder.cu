@@ -142,29 +142,6 @@ __device__ __forceinline__ void mma_rank(const unsigned char* lhs, const unsigne
   }
 }
 
-// The sum over the 8 lanes of a column group (lane % 4 alike) of 8 complex
-// partial sums, one per visibility slot: each lane ends with the full sum of
-// slot lane / 4 (three butterfly steps, 14 shuffles).
-__device__ __forceinline__ float2 reduce_slots(const float2 (&sv)[8], int lane) {
-  const bool b16 = lane & 16, b8 = lane & 8, b4 = lane & 4;
-  float2 t[4], u[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 keep = b16 ? sv[i + 4] : sv[i], send = b16 ? sv[i] : sv[i + 4];
-    t[i] = make_float2(keep.x + __shfl_xor_sync(0xffffffffu, send.x, 16),
-                       keep.y + __shfl_xor_sync(0xffffffffu, send.y, 16));
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float2 keep = b8 ? t[i + 2] : t[i], send = b8 ? t[i] : t[i + 2];
-    u[i] = make_float2(keep.x + __shfl_xor_sync(0xffffffffu, send.x, 8),
-                       keep.y + __shfl_xor_sync(0xffffffffu, send.y, 8));
-  }
-  const float2 keep = b4 ? u[1] : u[0], send = b4 ? u[0] : u[1];
-  return make_float2(keep.x + __shfl_xor_sync(0xffffffffu, send.x, 4),
-                     keep.y + __shfl_xor_sync(0xffffffffu, send.y, 4));
-}
-
 // sum (+)= (−i)^r · w · d per entry, w the entry's slot's μ^r/r! (slot
 // 2·(i >> 2) + (i & 1) of entry i; D_re in register i, D_im in 16 + i):
 // (−i)^r rotates by a quarter turn per rank, so each entry takes two FMAs
@@ -295,7 +272,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
         if (i) np *= npx;
         float* hi = reinterpret_cast<float*>(lhs + (size_t)i * TL::kBytesL);
         float* lo = reinterpret_cast<float*>(lhs + (size_t)(group + i) * TL::kBytesL);
-        const bool three = three_tf32_passes(r0 + i, w_rank);
+        const bool three = three_passes(r0 + i, w_rank);
 #pragma unroll
         for (int pol = 0; pol < kPols; ++pol) {
           const int row = pol * N + y;
@@ -395,7 +372,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
     auto issue = [&](int i, float(&d)[32]) {
       fence_regs(d);
       wgmma_fence();
-      if (three_tf32_passes(r0 + i, w_rank)) {
+      if (three_passes(r0 + i, w_rank)) {
         mma_rank<N, true>(lhs, st, wg, i, group, d);
       } else {
         mma_rank<N, false>(lhs, st, wg, i, group, d);

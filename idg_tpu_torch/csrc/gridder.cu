@@ -128,35 +128,6 @@ __device__ __forceinline__ void mma_rank(const unsigned char* stage, int slab, i
   }
 }
 
-// Wait for this warpgroup's products of rank r and fold them into the
-// running sum: out = (WreLre − WimLim) + i(WreLim + WimLre), weighted by
-// n^r. The thread's outputs: pixel (y, x) of pol p, q = p·N + x = tid / 4,
-// y = 8j + 2(tid % 4) + e, in sum[2j + e].
-template <int N>
-__device__ __forceinline__ void fold(int r, const float* __restrict__ n, int x, int t4,
-                                     float (&acc)[Tile<N>::kAcc],
-                                     float2 (&sum)[Tile<N>::kOut]) {
-  constexpr int J = N / 8;   // 8-column groups of the real lhs rows
-  idg::wgmma_wait<0>();
-  idg::fence_regs(acc);
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int o = 2 * j + e;
-      float w = 1.0f;
-      if (r > 0) {
-        const float nn = __ldg(n + (8 * j + 2 * t4 + e) * N + x);
-        for (int q = 0; q < r; ++q) w *= nn;
-      }
-      const float re = acc[4 * j + e] - acc[4 * (j + J) + 2 + e];
-      const float im = acc[4 * (j + J) + e] + acc[4 * j + 2 + e];
-      sum[o].x = fmaf(w, re, sum[o].x);
-      sum[o].y = fmaf(w, im, sum[o].y);
-    }
-  }
-}
-
 template <int N, bool kFuse>
 __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
@@ -293,7 +264,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
         float* hi = l_hi + (size_t)r * TL::kBytesL / 4;
         *reinterpret_cast<float4*>(hi + re) = make_float4(rh[0], rh[1], rh[2], rh[3]);
         *reinterpret_cast<float4*>(hi + im) = make_float4(ih[0], ih[1], ih[2], ih[3]);
-        if (idg::three_tf32_passes(r, w_rank)) {
+        if (idg::three_passes(r, w_rank)) {
           float* lo = l_lo + (size_t)r * TL::kBytesL / 4;
           *reinterpret_cast<float4*>(lo + re) = make_float4(rl[0], rl[1], rl[2], rl[3]);
           *reinterpret_cast<float4*>(lo + im) = make_float4(il[0], il[1], il[2], il[3]);
@@ -340,13 +311,13 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
       for (int r = 0; r < w_rank; ++r) {
         fence_regs(acc);
         wgmma_fence();
-        if (idg::three_tf32_passes(r, w_rank)) {
+        if (idg::three_passes(r, w_rank)) {
           mma_rank<N, true>(stage, slab, r, w_rank, acc);
         } else {
           mma_rank<N, false>(stage, slab, r, w_rank, acc);
         }
         wgmma_commit();
-        fold<N>(r, n, x_out, t4, acc, sum);
+        fold_rank<N>(r, n, x_out, t4, acc, sum);
       }
     }
     __syncthreads();

@@ -1,34 +1,33 @@
-// Separable gridder: visibilities -> subgrids c64[S, P, N, N] (K8b, K8c).
+// K8c, gridder cuda_v5: visibilities -> subgrids c64[S, P, N, N], the
+// separable product in split bf16 on the tensor cores (mma.sync) with Φ by
+// the channel recurrence; and the entry point of the three separable rungs
+// (cuda_v3: gridder_sep_fp32.cu, cuda_v4: gridder_sep_bf16.cu).
 //
-// Replaces idg_tpu/ops/pallas/gridder.py:_kernel_separable (launcher
-// _gridder_separable_run; registered as pallas_v3 with "highest" products and
-// as pallas_v4 with gridder_precisions) and _kernel_sep_recur (launcher
-// _gridder_sep_recur_run, pallas_v5). Per subgrid and Taylor rank r it takes
-// one complex matrix product over the visibilities v = (t, c):
+// Replaces idg_tpu/ops/pallas/gridder.py:_kernel_sep_recur (launcher
+// _gridder_sep_recur_run, gridder.py:708, registered as pallas_v5). Per
+// subgrid and Taylor rank r it takes one complex matrix product over the
+// visibilities v = (c, t):
 //   pix_r[y, (p,x)] = Σ_v Φy[v,y] · W_r[v,(p,x)],  W_r = Φx[v,x] · vis[v,p] · (iμ_v)^r / r!
 // then pix = Σ_r n^r ⊙ pix_r, the Jones correction A1ᴴ·P·A2 and the taper.
 // The complex product is packed on the contraction axis,
 //   [Φy_re | Φy_im] (N × 2V) · [[W_re, W_im], [−W_im, W_re]] (2V × 2NP),
-// so a rank's accumulators are N × 2NP float32 (32 × 256 at N = 32).
-//
-// Variants (template flags): v3 = float32 products in FFMA on the CUDA
-// cores, Φ by exact sincosf; v4 = the products on the tensor cores as bf16
-// mma.sync m16n8k16 with float32 accumulation: the "3x" policy takes
-// hi·hi + hi·lo + lo·hi of the round-to-nearest hi/lo splits, "default" one
-// hi·hi pass (ops/precision.py); v5 = v4 with Φ made by the channel
-// recurrence (Φ_c = Φ_{c−1}·Φ_Δk, exact restart from k0 + c·Δk at every
-// c % 16 == 0, c > 0).
+// so a rank's accumulators are N × 2NP float32 (32 × 256 at N = 32). The
+// products are bf16 mma.sync m16n8k16 with float32 accumulation: the "3x"
+// policy takes hi·hi + hi·lo + lo·hi of the round-to-nearest hi/lo splits,
+// "default" one hi·hi pass (ops/precision.py). Φ is made by the recurrence
+// (Φ_c = Φ_{c−1}·Φ_Δk, exact restart from k0 + c·Δk at every c % 16 == 0,
+// c > 0).
 //
 // What bounds it on an H100: the products. Per subgrid, rank and pass they
 // are 2·N·2NP·2V FLOP (67 MFLOP at N = 32, V = 2048) against ~130 KB of input,
-// so the kernel is compute-bound: v3 on the FP32 FMA rate, v4/v5 on the
-// tensor-core rate, where forming W (one complex multiply and two bf16
-// splits per entry of W, O(V·N·P) per rank) on the CUDA cores and the
-// operands' trips through shared memory compete with the mma issue. The
-// L1/shared-memory path is the one measured to bind: the first version read
-// each tile's visibilities per lane with a 512 B stride (~4,700 L1 wavefronts
-// a tile) and took 111 ms at the default problem; staging them once per tile
-// with coalesced loads took it to 64 ms (H100 80GB HBM3, 700 W).
+// so the kernel is compute-bound on the tensor-core rate, where forming W
+// (one complex multiply and two bf16 splits per entry of W, O(V·N·P) per
+// rank) on the CUDA cores and the operands' trips through shared memory
+// compete with the mma issue. The L1/shared-memory path is the one measured
+// to bind: the first version read each tile's visibilities per lane with a
+// 512 B stride (~4,700 L1 wavefronts a tile) and took 111 ms at the default
+// problem; staging them once per tile with coalesced loads took it to 64
+// ms (H100 80GB HBM3, 700 W).
 //
 // Design: one block of 512 threads per subgrid. The rank loop is outermost,
 // so that a thread holds one rank's accumulators (16 floats at N = 32) for
@@ -37,19 +36,19 @@
 // t-tile outer and channel inner, so the recurrence's state for a thread's Φ
 // entries stays in its registers across the channels. Per tile the block
 // stages the tile's vis·(iμ)^r/r! ([P][kTile], coalesced loads), writes Φy,
-// then W, to shared memory (bf16 hi/lo halves for v4/v5, float2 for v3) and,
-// after a barrier, multiplies. Warp w owns output columns
-// [16w, 16w + 16) at N = 32: warps 0–7 the real parts, 8–15 the imaginary
-// ones, each all N rows. The fragments' bf16 pairs are read with 32-bit
-// loads from rows padded by 8 values (no bank conflicts), −W_im by a sign
-// flip of the loaded pair. A tile's mma.sync products go to fresh
-// accumulators that are then added to the rank's in round-to-nearest FADDs:
-// the tensor cores' accumulation truncates, and a running sum over all of V
-// missed the 1e-5 gate against the plain version (3.2e-5 at V = 768). The
-// TPU kernel's whole-V [2N, V] × [V, 2NP] dot and its [2N, 2NP] accumulator,
-// which the VMEM held, have no counterpart: here the product is cut into
-// tiles and the packing halves the accumulators.
-// wgmma, TMA and warp specialisation are left for later.
+// then W, to shared memory as bf16 hi/lo halves and, after a barrier,
+// multiplies. Warp w owns output columns [16w, 16w + 16) at N = 32: warps
+// 0–7 the real parts, 8–15 the imaginary ones, each all N rows. The
+// fragments' bf16 pairs are read with 32-bit loads from rows padded by 8
+// values (no bank conflicts), −W_im by a sign flip of the loaded pair. A
+// tile's mma.sync products go to fresh accumulators that are then added to
+// the rank's in round-to-nearest FADDs: the tensor cores' accumulation
+// truncates, and a running sum over all of V missed the 1e-5 gate against
+// the plain version (3.2e-5 at V = 768). The TPU kernel's whole-V
+// [2N, V] × [V, 2NP] dot and its [2N, 2NP] accumulator, which the VMEM held,
+// have no counterpart: here the product is cut into tiles and the packing
+// halves the accumulators. The rungs cuda_v3 and cuda_v4 have kernels of
+// their own.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,22 +66,20 @@ constexpr int kTile = 32;   // timesteps of one channel per pass
 constexpr int kPad = 8;     // bf16 row padding of the operand tiles
 constexpr int kLd = kTile + kPad;
 
-template <int N, bool kBf16>
+template <int N>
 struct Smem {
   static constexpr int kNP = N * kPols;
   // the pixel sum over ranks, [N(y)][NP] complex, the tile's weighted
   // visibilities [P][kTile] complex, then the operand tiles
   static constexpr size_t pix = (size_t)N * kNP * sizeof(float2);
   static constexpr size_t vt = (size_t)kPols * kTile * sizeof(float2);
-  static constexpr size_t a = kBf16 ? (size_t)4 * N * kLd * sizeof(__nv_bfloat16)
-                                    : (size_t)kTile * N * sizeof(float2);
-  static constexpr size_t b = kBf16 ? (size_t)4 * kNP * kLd * sizeof(__nv_bfloat16)
-                                    : (size_t)kTile * kNP * sizeof(float2);
+  static constexpr size_t a = (size_t)4 * N * kLd * sizeof(__nv_bfloat16);
+  static constexpr size_t b = (size_t)4 * kNP * kLd * sizeof(__nv_bfloat16);
   static constexpr size_t bytes = pix + vt + a + b;
 };
 
-template <int N, bool kBf16, bool kRecur>
-__global__ void __launch_bounds__(kThreads, 1) gridder_separable_kernel(
+template <int N>
+__global__ void __launch_bounds__(kThreads, 1) gridder_sep_v5_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float2* __restrict__ vis,         // [S, T, C, P]
     const float* __restrict__ mu,           // [S, T, C]
@@ -103,19 +100,15 @@ __global__ void __launch_bounds__(kThreads, 1) gridder_separable_kernel(
   constexpr int kNP = N * kPols;
   constexpr int kEnt = kTile * N / kThreads;   // Φ entries of each axis per thread
   static_assert(kTile * N % kThreads == 0 && kTile % 16 == 0, "tile shape");
-  static_assert(kBf16 || !kRecur, "the recurrence rung takes the bf16 products");
-  using S = Smem<N, kBf16>;
+  using S = Smem<N>;
   extern __shared__ float4 smem[];
   char* base = reinterpret_cast<char*>(smem);
   float2* s_pix = reinterpret_cast<float2*>(base);                  // [N][NP]
   float2* s_vt = reinterpret_cast<float2*>(base + S::pix);          // [P][kTile]
   char* ops = base + S::pix + S::vt;
-  // v4/v5: Φy as A [hl][re|im][y][kLd], W as B [hl][re|im][(p,x)][kLd]
+  // Φy as A [hl][re|im][y][kLd], W as B [hl][re|im][(p,x)][kLd]
   __nv_bfloat16* s_a = reinterpret_cast<__nv_bfloat16*>(ops);
   __nv_bfloat16* s_b = reinterpret_cast<__nv_bfloat16*>(ops + S::a);
-  // v3: Φy [kTile][N] and W [kTile][NP] as float2
-  float2* s_phy = reinterpret_cast<float2*>(ops);
-  float2* s_w = reinterpret_cast<float2*>(ops + S::a);
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -127,12 +120,13 @@ __global__ void __launch_bounds__(kThreads, 1) gridder_separable_kernel(
   const float dk = C > 1 ? k[1] - k[0] : 0.0f;
 
   // a thread's Φ entries: (axis index, tile row) of e = tid + i·kThreads,
-  // tile-row-fastest for the bf16 tiles, axis-fastest for the float2 ones
+  // tile row fastest
   auto entry = [&](int i, int& a, int& j) {
     const int e = tid + i * kThreads;
-    if constexpr (kBf16) { a = e / kTile; j = e % kTile; } else { j = e / N; a = e % N; }
+    a = e / kTile;
+    j = e % kTile;
   };
-  // recurrence state of this thread's entries (unused without kRecur)
+  // recurrence state of this thread's entries
   float2 cur_x[kEnt], step_x[kEnt], cur_y[kEnt], step_y[kEnt];
 
   // tensor-core tiling: warp w owns columns [w·kCols, (w+1)·kCols) of the
@@ -141,13 +135,10 @@ __global__ void __launch_bounds__(kThreads, 1) gridder_separable_kernel(
   const bool imag_warp = warp >= kWarps / 2;
   const int col0 = (warp % (kWarps / 2)) * kCols;   // column within NP
   const int g = lane / 4, q = lane % 4;
-  // FFMA tiling: rows y = warp + kWarps·i, columns (p,x) = lane + 32jj
-  constexpr int kRI = N / kWarps, kCJ = kNP / 32;
 
   for (int r = 0; r < w_rank; ++r) {
     const bool three = r == 0 || w_rank > 2;   // gridder_precisions(w_rank)[r]
-    float acc[kBf16 ? kMT : 1][kBf16 ? kNT : 1][4] = {};
-    float2 cacc[kBf16 ? 1 : kRI][kBf16 ? 1 : kCJ] = {};
+    float acc[kMT][kNT][4] = {};
 
     for (int t0 = 0; t0 < T; t0 += kTile) {
       for (int c = 0; c < C; ++c) {
@@ -168,17 +159,13 @@ __global__ void __launch_bounds__(kThreads, 1) gridder_separable_kernel(
           float2 phy = make_float2(0.0f, 0.0f);
           phx[i] = phy;
           if (t < T) {
-            phx[i] = phasor<kRecur>(pox_s[a], l[a], uvw_s[t * 3 + 0], k, c, dk, cur_x[i],
-                                    step_x[i]);
-            phy = phasor<kRecur>(poy_s[a], m[a], uvw_s[t * 3 + 1], k, c, dk, cur_y[i],
-                                 step_y[i]);
+            phx[i] = phasor<true>(pox_s[a], l[a], uvw_s[t * 3 + 0], k, c, dk, cur_x[i],
+                                  step_x[i]);
+            phy = phasor<true>(poy_s[a], m[a], uvw_s[t * 3 + 1], k, c, dk, cur_y[i],
+                               step_y[i]);
           }
-          if constexpr (kBf16) {
-            split_bf16(phy.x, s_a[(0 * N + a) * kLd + j], s_a[(2 * N + a) * kLd + j]);
-            split_bf16(phy.y, s_a[(1 * N + a) * kLd + j], s_a[(3 * N + a) * kLd + j]);
-          } else {
-            s_phy[j * N + a] = phy;
-          }
+          split_bf16(phy.x, s_a[(0 * N + a) * kLd + j], s_a[(2 * N + a) * kLd + j]);
+          split_bf16(phy.y, s_a[(1 * N + a) * kLd + j], s_a[(3 * N + a) * kLd + j]);
         }
         __syncthreads();
         // W = Φx ⊙ the weighted visibilities (zero past T)
@@ -190,115 +177,83 @@ __global__ void __launch_bounds__(kThreads, 1) gridder_separable_kernel(
           for (int p = 0; p < kPols; ++p) {
             const float2 w = cmul(phx[i], s_vt[p * kTile + j]);
             const int col = p * N + a;
-            if constexpr (kBf16) {
-              split_bf16(w.x, s_b[(0 * kNP + col) * kLd + j], s_b[(2 * kNP + col) * kLd + j]);
-              split_bf16(w.y, s_b[(1 * kNP + col) * kLd + j], s_b[(3 * kNP + col) * kLd + j]);
-            } else {
-              s_w[j * kNP + col] = w;
-            }
+            split_bf16(w.x, s_b[(0 * kNP + col) * kLd + j], s_b[(2 * kNP + col) * kLd + j]);
+            split_bf16(w.y, s_b[(1 * kNP + col) * kLd + j], s_b[(3 * kNP + col) * kLd + j]);
           }
         }
         __syncthreads();
 
-        if constexpr (kBf16) {
-          // the tile's sum in fresh accumulators, added to the rank's with
-          // round-to-nearest: mma.sync's own accumulation truncates, which
-          // over the 64 tiles of V = 2048 biases the sum by ~1e-4
-          float tacc[kMT][kNT][4] = {};
+        // the tile's sum in fresh accumulators, added to the rank's with
+        // round-to-nearest: mma.sync's own accumulation truncates, which
+        // over the 64 tiles of V = 2048 biases the sum by ~1e-4
+        float tacc[kMT][kNT][4] = {};
 #pragma unroll
-          for (int ri = 0; ri < 2; ++ri) {
-            // columns' K halves: real parts [W_re; −W_im], imaginary [W_im; W_re]
-            const int src = imag_warp ? 1 - ri : ri;
-            const uint32_t neg = (!imag_warp && ri == 1) ? kNegPair : 0u;
+        for (int ri = 0; ri < 2; ++ri) {
+          // columns' K halves: real parts [W_re; −W_im], imaginary [W_im; W_re]
+          const int src = imag_warp ? 1 - ri : ri;
+          const uint32_t neg = (!imag_warp && ri == 1) ? kNegPair : 0u;
 #pragma unroll
-            for (int k0 = 0; k0 < kTile; k0 += 16) {
-              uint32_t ah[kMT][4], al[kMT][4];
+          for (int k0 = 0; k0 < kTile; k0 += 16) {
+            uint32_t ah[kMT][4], al[kMT][4];
 #pragma unroll
-              for (int mt = 0; mt < kMT; ++mt) {
-                const __nv_bfloat16* rh = s_a + (ri * N + mt * 16 + g) * kLd + k0 + 2 * q;
-                const __nv_bfloat16* rl = rh + 2 * N * kLd;
-                ah[mt][0] = lds32(rh);
-                ah[mt][1] = lds32(rh + 8 * kLd);
-                ah[mt][2] = lds32(rh + 8);
-                ah[mt][3] = lds32(rh + 8 * kLd + 8);
-                if (three) {
-                  al[mt][0] = lds32(rl);
-                  al[mt][1] = lds32(rl + 8 * kLd);
-                  al[mt][2] = lds32(rl + 8);
-                  al[mt][3] = lds32(rl + 8 * kLd + 8);
-                }
+            for (int mt = 0; mt < kMT; ++mt) {
+              const __nv_bfloat16* rh = s_a + (ri * N + mt * 16 + g) * kLd + k0 + 2 * q;
+              const __nv_bfloat16* rl = rh + 2 * N * kLd;
+              ah[mt][0] = lds32(rh);
+              ah[mt][1] = lds32(rh + 8 * kLd);
+              ah[mt][2] = lds32(rh + 8);
+              ah[mt][3] = lds32(rh + 8 * kLd + 8);
+              if (three) {
+                al[mt][0] = lds32(rl);
+                al[mt][1] = lds32(rl + 8 * kLd);
+                al[mt][2] = lds32(rl + 8);
+                al[mt][3] = lds32(rl + 8 * kLd + 8);
               }
+            }
 #pragma unroll
-              for (int nt = 0; nt < kNT; ++nt) {
-                const __nv_bfloat16* bh =
-                    s_b + (src * kNP + col0 + nt * 8 + g) * kLd + k0 + 2 * q;
-                const __nv_bfloat16* bl = bh + 2 * kNP * kLd;
-                const uint32_t bh0 = lds32(bh) ^ neg, bh1 = lds32(bh + 8) ^ neg;
+            for (int nt = 0; nt < kNT; ++nt) {
+              const __nv_bfloat16* bh =
+                  s_b + (src * kNP + col0 + nt * 8 + g) * kLd + k0 + 2 * q;
+              const __nv_bfloat16* bl = bh + 2 * kNP * kLd;
+              const uint32_t bh0 = lds32(bh) ^ neg, bh1 = lds32(bh + 8) ^ neg;
 #pragma unroll
-                for (int mt = 0; mt < kMT; ++mt) mma_bf16(tacc[mt][nt], ah[mt], bh0, bh1);
-                if (three) {
-                  const uint32_t bl0 = lds32(bl) ^ neg, bl1 = lds32(bl + 8) ^ neg;
+              for (int mt = 0; mt < kMT; ++mt) mma_bf16(tacc[mt][nt], ah[mt], bh0, bh1);
+              if (three) {
+                const uint32_t bl0 = lds32(bl) ^ neg, bl1 = lds32(bl + 8) ^ neg;
 #pragma unroll
-                  for (int mt = 0; mt < kMT; ++mt) {
-                    mma_bf16(tacc[mt][nt], ah[mt], bl0, bl1);
-                    mma_bf16(tacc[mt][nt], al[mt], bh0, bh1);
-                  }
+                for (int mt = 0; mt < kMT; ++mt) {
+                  mma_bf16(tacc[mt][nt], ah[mt], bl0, bl1);
+                  mma_bf16(tacc[mt][nt], al[mt], bh0, bh1);
                 }
               }
             }
           }
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[mt][nt][e] += tacc[mt][nt][e];
-        } else {
-#pragma unroll 4
-          for (int j = 0; j < kTile; ++j) {
-            float2 py[kRI], w[kCJ];
-#pragma unroll
-            for (int i = 0; i < kRI; ++i) py[i] = s_phy[j * N + warp + kWarps * i];
-#pragma unroll
-            for (int jj = 0; jj < kCJ; ++jj) w[jj] = s_w[j * kNP + lane + 32 * jj];
-#pragma unroll
-            for (int i = 0; i < kRI; ++i)
-#pragma unroll
-              for (int jj = 0; jj < kCJ; ++jj) cmac(cacc[i][jj], py[i], w[jj]);
-          }
         }
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += tacc[mt][nt][e];
         __syncthreads();
       }
     }
 
     // this rank's product, weighted by n^r, into the pixel sum; every
     // (row, column) belongs to one thread, so no barrier until the epilogue
-    if constexpr (kBf16) {
-      float* pix = reinterpret_cast<float*>(s_pix) + (imag_warp ? 1 : 0);
+    float* pix = reinterpret_cast<float*>(s_pix) + (imag_warp ? 1 : 0);
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
+      for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int y = mt * 16 + g + (e >= 2 ? 8 : 0);
-            const int col = col0 + nt * 8 + 2 * q + (e & 1);
-            const float v = acc[mt][nt][e] * power(n[y * N + col % N], r);
-            float& dst = pix[2 * (y * kNP + col)];
-            dst = r == 0 ? v : dst + v;
-          }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kRI; ++i)
-#pragma unroll
-        for (int jj = 0; jj < kCJ; ++jj) {
-          const int y = warp + kWarps * i, col = lane + 32 * jj;
-          const float np = power(n[y * N + col % N], r);
-          const float2 v = make_float2(cacc[i][jj].x * np, cacc[i][jj].y * np);
-          float2& dst = s_pix[y * kNP + col];
-          dst = r == 0 ? v : cadd(dst, v);
+        for (int e = 0; e < 4; ++e) {
+          const int y = mt * 16 + g + (e >= 2 ? 8 : 0);
+          const int col = col0 + nt * 8 + 2 * q + (e & 1);
+          const float v = acc[mt][nt][e] * power(n[y * N + col % N], r);
+          float& dst = pix[2 * (y * kNP + col)];
+          dst = r == 0 ? v : dst + v;
         }
-    }
   }
   __syncthreads();
 
@@ -320,20 +275,20 @@ __global__ void __launch_bounds__(kThreads, 1) gridder_separable_kernel(
   }
 }
 
-template <int N, bool kBf16, bool kRecur>
-cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const float* k,
+template <int N>
+cudaError_t launch_v5(const float* uvw, const float2* vis, const float* mu, const float* k,
                    const float* po_x, const float* po_y, const float* l, const float* m,
                    const float* n, const float* sph, const float2* aterms,
                    const int* aterm_index, const int* station1, const int* station2,
                    float2* out, int S, int T, int C, int nr_stations, int w_rank,
                    cudaStream_t stream) {
-  constexpr size_t bytes = Smem<N, kBf16>::bytes;
+  constexpr size_t bytes = Smem<N>::bytes;
   // above 48 KB a block's dynamic shared memory has to be opted into
-  cudaError_t err = cudaFuncSetAttribute(gridder_separable_kernel<N, kBf16, kRecur>,
+  cudaError_t err = cudaFuncSetAttribute(gridder_sep_v5_kernel<N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return err;
-  gridder_separable_kernel<N, kBf16, kRecur><<<S, kThreads, bytes, stream>>>(
+  gridder_sep_v5_kernel<N><<<S, kThreads, bytes, stream>>>(
       uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
       out, T, C, nr_stations, w_rank);
   return cudaGetLastError();
@@ -341,8 +296,20 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
 
 }  // namespace
 
-// variant: 0 = cuda_v3 (FP32, exact Φ), 1 = cuda_v4 (bf16 tensor cores,
-// exact Φ), 2 = cuda_v5 (bf16 tensor cores, recurrence Φ).
+namespace idg {
+cudaError_t gridder_sep_v3(const float*, const float2*, const float*, const float*, const float*,
+                           const float*, const float*, const float*, const float*,
+                           const float*, const float2*, const int*, const int*, const int*,
+                           float2*, int, int, int, int, int, int, cudaStream_t);
+cudaError_t gridder_sep_v4(const float*, const float2*, const float*, const float*, const float*,
+                           const float*, const float*, const float*, const float*,
+                           const float*, const float2*, const int*, const int*, const int*,
+                           float2*, int, int, int, int, int, int, cudaStream_t);
+}  // namespace idg
+
+// variant: 0 = cuda_v3 (FP32 FFMA, exact Φ; gridder_sep_fp32.cu), 1 =
+// cuda_v4 (bf16 wgmma, exact Φ; gridder_sep_bf16.cu), 2 = cuda_v5 (bf16
+// mma.sync, recurrence Φ; this file).
 extern "C" int idg_gridder_separable(
     const void* uvw, const void* vis, const void* mu, const void* k, const void* po_x,
     const void* po_y, const void* l, const void* m, const void* n, const void* sph,
@@ -358,14 +325,16 @@ extern "C" int idg_gridder_separable(
       (const float*)po_x, (const float*)po_y, (const float*)l, (const float*)m,        \
       (const float*)n, (const float*)sph, (const float2*)aterms,                       \
       (const int*)aterm_index, (const int*)station1, (const int*)station2,             \
-      (float2*)out, S, T, C, nr_stations, w_rank, st
-  switch (N * 4 + variant) {
-    case 16 * 4 + 0: return (int)launch<16, false, false>(IDG_ARGS);
-    case 16 * 4 + 1: return (int)launch<16, true, false>(IDG_ARGS);
-    case 16 * 4 + 2: return (int)launch<16, true, true>(IDG_ARGS);
-    case 32 * 4 + 0: return (int)launch<32, false, false>(IDG_ARGS);
-    case 32 * 4 + 1: return (int)launch<32, true, false>(IDG_ARGS);
-    case 32 * 4 + 2: return (int)launch<32, true, true>(IDG_ARGS);
+      (float2*)out, S, T, C
+  switch (variant) {
+    case 0: return (int)idg::gridder_sep_v3(IDG_ARGS, N, nr_stations, w_rank, st);
+    case 1: return (int)idg::gridder_sep_v4(IDG_ARGS, N, nr_stations, w_rank, st);
+    case 2:
+      switch (N) {
+        case 16: return (int)launch_v5<16>(IDG_ARGS, nr_stations, w_rank, st);
+        case 32: return (int)launch_v5<32>(IDG_ARGS, nr_stations, w_rank, st);
+        default: return (int)cudaErrorInvalidValue;
+      }
     default: return (int)cudaErrorInvalidValue;
   }
 #undef IDG_ARGS

@@ -1,8 +1,8 @@
 // Helpers of the separable kernels (gridder_separable.cu,
-// degridder_separable.cu): the bf16 hi/lo split of a float32 value, a 32-bit
-// shared-memory load of two bf16 values, one bf16 mma.sync into float32
-// accumulators, the Taylor terms of the w correction and the phasors with
-// their channel recurrence.
+// degridder_separable.cu, degridder_polstack.cu and the rungs' *_sep_*.cu):
+// the bf16 hi/lo split of a float32 value, a 32-bit shared-memory load of
+// two bf16 values, one bf16 mma.sync into float32 accumulators, the Taylor
+// terms of the w correction and the phasors with their channel recurrence.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,16 +1,21 @@
-// Hopper helpers of the TF32 tensor-core gridder and degridder (gridder.cu,
-// degridder.cu): the TF32 split of a float32 value, shared-memory matrix
-// descriptors, `wgmma` on TF32 operands with its fences and its three-pass
-// split product, and `cp.async` copies into shared memory.
+// Hopper helpers of the tensor-core kernels: the TF32 gridder and degridder
+// (gridder.cu, degridder.cu) and the bf16 separable rungs
+// (gridder_sep_bf16.cu, degridder_sep_bf16.cu): the TF32 split of a float32
+// value, shared-memory matrix descriptors, `wgmma` on TF32 and on bf16
+// operands with its fences and its three-pass split product, and `cp.async`
+// copies into shared memory.
 //
 // Operand layout (both operands K-major, the only layout TF32 `wgmma`
-// takes; no swizzle): a [rows][K] tile is stored as 8×16 B core matrices,
-// each 8 rows × 4 consecutive K values, 128 contiguous bytes. The core
-// matrix of row group g and 4-wide K chunk c sits at (g·kc + c)·128 bytes,
-// kc = K / 4, so a descriptor takes LBO = 128 (the next K chunk) and
-// SBO = kc·128 (the next row group), and one k8 step spans two chunks.
+// takes, and the one the bf16 kernels use too; no swizzle): a [rows][K]
+// tile is stored as 8×16 B core matrices, each 8 rows × 16 bytes of
+// consecutive K values (4 TF32 or 8 bf16), 128 contiguous bytes. The core
+// matrix of row group g and K chunk c sits at (g·kc + c)·128 bytes, kc the
+// chunks of a row, so a descriptor takes LBO = 128 (the next K chunk) and
+// SBO = kc·128 (the next row group), and one k8 TF32 step or one k16 bf16
+// step spans two chunks.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -106,10 +111,40 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t 
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// Whether Taylor rank r of a rank-w_rank product takes three TF32 passes
-// (else hi·hi alone): rank 0 always, every rank of an escalated rank
-// (ops/precision.py: "3xtf32", one pass for rank 1 at rank ≤ 2).
-__device__ __forceinline__ bool three_tf32_passes(int r, int w_rank) {
+// The gridders' fold (K1, gridder.cu; cuda_v4, gridder_sep_bf16.cu): wait
+// for this warpgroup's products of rank r, outᵀ = A · B with A's rows
+// (q, re | im) interleaved by 8-row groups and B's rows (re | im)·N + y, and
+// fold them into the running sum, out = (AreBre − AimBim) + i(AreBim +
+// AimBre), weighted by n^r. The thread's outputs: pixel (y, x) of pol p,
+// q = p·N + x = tid / 4, y = 8j + 2(tid % 4) + e, in sum[2j + e].
+template <int N>
+__device__ __forceinline__ void fold_rank(int r, const float* __restrict__ n, int x, int t4,
+                                          float (&acc)[N], float2 (&sum)[N / 4]) {
+  constexpr int J = N / 8;   // 8-column groups of B's real rows
+  wgmma_wait<0>();
+  fence_regs(acc);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int o = 2 * j + e;
+      float w = 1.0f;
+      if (r > 0) {
+        const float nn = __ldg(n + (8 * j + 2 * t4 + e) * N + x);
+        for (int q = 0; q < r; ++q) w *= nn;
+      }
+      const float re = acc[4 * j + e] - acc[4 * (j + J) + 2 + e];
+      const float im = acc[4 * (j + J) + e] + acc[4 * j + 2 + e];
+      sum[o].x = fmaf(w, re, sum[o].x);
+      sum[o].y = fmaf(w, im, sum[o].y);
+    }
+  }
+}
+
+// Whether Taylor rank r of a rank-w_rank product takes three passes (else
+// hi·hi alone): rank 0 always, every rank of an escalated rank
+// (ops/precision.py: "3xtf32" and "3x", one pass for rank 1 at rank ≤ 2).
+__device__ __forceinline__ bool three_passes(int r, int w_rank) {
   return r == 0 || w_rank > 2;
 }
 
@@ -125,6 +160,78 @@ __device__ __forceinline__ void mma_tf32_step(float (&d)[K], bool first, uint64_
   } else {
     wgmma_tf32(d, a_hi, b_hi, first ? 0 : 1);
   }
+}
+
+// Element index of (row, k) in a bf16 core-matrix tile of kc 8-wide K chunks.
+__device__ __forceinline__ int core_index_bf16(int row, int k, int kc) {
+  return (((row >> 3) * kc + (k >> 3)) * 8 + (row & 7)) * 8 + (k & 7);
+}
+
+// The bf16 hi/lo splits of four values (separable.cuh:split_bf16, round to
+// nearest even), each as 8 bytes with the lowest K first: two paired
+// conversions (cvt.rn.bf16x2.f32) a half.
+__device__ __forceinline__ void split_bf16x4(const float (&x)[4], uint2& hi, uint2& lo) {
+  const __nv_bfloat162 h01 = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 h23 = __floats2bfloat162_rn(x[2], x[3]);
+  const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+  const __nv_bfloat162 l01 = __floats2bfloat162_rn(x[0] - f01.x, x[1] - f01.y);
+  const __nv_bfloat162 l23 = __floats2bfloat162_rn(x[2] - f23.x, x[3] - f23.y);
+  hi = make_uint2(reinterpret_cast<const uint32_t&>(h01), reinterpret_cast<const uint32_t&>(h23));
+  lo = make_uint2(reinterpret_cast<const uint32_t&>(l01), reinterpret_cast<const uint32_t&>(l23));
+}
+
+// d (+)= a · b over one k16 step of bf16 operands, both K-major in shared
+// memory, D 64×32 float32 (16 registers a thread, the ownership of
+// wgmma_tf32 above). accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same on D 64×64 (32 registers a thread).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// One k16 step of a bf16 split product into d: lo·hi + hi·lo + hi·hi
+// (kThree, "3x"), or hi·hi alone ("default"); `first` overwrites d.
+template <bool kThree, int K>
+__device__ __forceinline__ void mma_bf16_step(float (&d)[K], bool first, uint64_t a_hi,
+                                              uint64_t a_lo, uint64_t b_hi, uint64_t b_lo) {
+  if constexpr (kThree) {
+    wgmma_bf16(d, a_lo, b_hi, first ? 0 : 1);
+    wgmma_bf16(d, a_hi, b_lo, 1);
+    wgmma_bf16(d, a_hi, b_hi, 1);
+  } else {
+    wgmma_bf16(d, a_hi, b_hi, first ? 0 : 1);
+  }
+}
+
+// Named barrier `id` over the first `count` threads that reach it (a
+// multiple of 32): the producers' own hand-over inside a tile.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Asynchronous copies of 16 and 4 bytes, global → shared.

@@ -1,5 +1,7 @@
 """Degridder `cuda_v3` / `cuda_v4` / `cuda_v5`: the separable-phasor kernels
-K9b / K9c (csrc/degridder_separable.cu) and their plain PyTorch version.
+K9b (cuda_v3: csrc/degridder_sep_fp32.cu, cuda_v4: csrc/degridder_sep_bf16.cu)
+and K9c (cuda_v5: csrc/degridder_separable.cu, which holds the entry point
+of all three) and their plain PyTorch version.
 
 The adjoint of ops/cuda/gridder_separable.py (the math of
 idg_tpu/ops/pallas/degridder.py:_kernel_separable):
@@ -7,10 +9,10 @@ idg_tpu/ops/pallas/degridder.py:_kernel_separable):
   D_r[v, (p,x)] = Σ_y conj(Φy[v,y]) · (n^r ⊙ B)[y, (p,x)]           (stage 1, the product)
   vis[v,p] = Σ_r conj((iμ_v)^r / r!) · Σ_x D_r[v,(p,x)] · conj(Φx[v,x])  (stage 2)
 Stage 1 runs in the rung's precision mode (ops/precision.py); stage 2 in
-float32. The rungs are those of the gridder: cuda_v3 float32, cuda_v4 the
-split bf16 policy on the tensor cores, cuda_v5 cuda_v4 with Φ by the channel
-recurrence (uniform channel spacing assumed; the guard falls back to
-cuda_v4). Both write [S, T, C, P]: v5's c-major order is a loop order.
+float32. The rungs are those of the gridder: cuda_v3 float32 FFMA, cuda_v4
+the split bf16 policy on the tensor cores (`wgmma`), cuda_v5 the same policy
+on `mma.sync` with Φ by the channel recurrence (uniform channel spacing
+assumed; the guard falls back to cuda_v4). Both write [S, T, C, P]: v5's c-major order is a loop order.
 
 Each wrapper dispatches on the staging's device: a CPU staging runs the
 plain version, a CUDA staging launches the kernel (or raises).
@@ -118,8 +120,8 @@ def _degridder_separable(wrapper, version: str, params: IDGParams, stg: Staged,
 
 @register(
     "degridder", "cuda_v3",
-    "CUDA C++ separable phasor: per rank one packed Φy*·B product (FP32, CUDA "
-    "cores) + FP32 Φx* contraction; counterpart of pallas_v3",
+    "CUDA C++ separable phasor: per rank one packed Φy*·B product (FP32 FFMA, "
+    "register-tiled, two ranks a pass) + FP32 Φx* contraction; counterpart of pallas_v3",
     family="cuda",
 )
 def degridder_cuda_v3(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
@@ -132,8 +134,8 @@ def degridder_cuda_v3(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
 
 @register(
     "degridder", "cuda_v4",
-    "v3 with stage 1 on the tensor cores: bf16 mma.sync, rank-0 bf16_3x, "
-    "rank-1 single-pass bf16; counterpart of pallas_v4",
+    "v3 with stage 1 on the tensor cores: bf16 wgmma with producer warps, "
+    "rank-0 bf16_3x, rank-1 single-pass bf16; counterpart of pallas_v4",
     family="cuda",
 )
 def degridder_cuda_v4(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
@@ -146,8 +148,8 @@ def degridder_cuda_v4(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
 
 @register(
     "degridder", "cuda_v5",
-    "v4 + channel-recurrence phasor generation (exact resync every 16 "
-    "channels), c-major; counterpart of pallas_v5",
+    "v4's policy on bf16 mma.sync + channel-recurrence phasor generation "
+    "(exact resync every 16 channels), c-major; counterpart of pallas_v5",
     family="cuda", uniform_channels=True, fallback="cuda_v4",
 )
 def degridder_cuda_v5(params: IDGParams, stg: Staged, subgrids: torch.Tensor,

@@ -1,5 +1,7 @@
 """Gridder `cuda_v3` / `cuda_v4` / `cuda_v5`: the separable-phasor kernels
-K8b / K8c (csrc/gridder_separable.cu) and their plain PyTorch version.
+K8b (cuda_v3: csrc/gridder_sep_fp32.cu, cuda_v4: csrc/gridder_sep_bf16.cu)
+and K8c (cuda_v5: csrc/gridder_separable.cu, which holds the entry point of
+all three) and their plain PyTorch version.
 
 Per subgrid and Taylor rank r the gridder is one complex matrix product,
   pix_r[y, (p,x)] = Σ_v Φy[v,y] · W_r[v,(p,x)],   W_r = Φx[v,x] · vis[v,p] · (iμ_v)^r / r!
@@ -7,11 +9,13 @@ then pix = Σ_r n^r ⊙ pix_r, Jones A1ᴴ·P·A2 and the taper (the math of
 idg_tpu/ops/pallas/gridder.py:_kernel_separable). The rungs differ in how
 the product is taken and how Φ is made:
 
-  cuda_v3  float32 products ("highest"), Φ by one exact sincos per entry
+  cuda_v3  float32 products ("highest") in FFMA on the CUDA cores, Φ by one
+           exact sincos per entry
   cuda_v4  the precision policy of ops/precision.py:gridder_precisions
            (bf16_3x for the signal, one bf16 pass for the rank-1
-           correction at rank ≤ 2) on the tensor cores; exact Φ
-  cuda_v5  cuda_v4 with Φ made by the channel recurrence: the channel-0
+           correction at rank ≤ 2) on the tensor cores (`wgmma`); exact Φ
+  cuda_v5  cuda_v4's policy on the tensor cores (`mma.sync`), with Φ made
+           by the channel recurrence: the channel-0
            plane and one complex multiply per channel by the Δk plane, with
            an exact resync from k0 + c·Δk at every c % 16 == 0, c > 0. It
            assumes uniform channel spacing (the guard falls back to cuda_v4).
@@ -176,7 +180,7 @@ def _gridder_separable(wrapper, version: str, params: IDGParams, stg: Staged, w_
 @register(
     "gridder", "cuda_v3",
     "CUDA C++ separable phasor: per rank one packed Φyᵀ·(Φx⊙vis) product in "
-    "FP32 on the CUDA cores, exact sincos; counterpart of pallas_v3",
+    "FP32 FFMA, register-tiled, two ranks a pass, exact sincos; counterpart of pallas_v3",
     family="cuda",
 )
 def gridder_cuda_v3(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):
@@ -188,8 +192,8 @@ def gridder_cuda_v3(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK
 
 @register(
     "gridder", "cuda_v4",
-    "v3 on the tensor cores: bf16 mma.sync, rank-0 bf16_3x, rank-1 correction "
-    "single-pass bf16; counterpart of pallas_v4",
+    "v3 on the tensor cores: bf16 wgmma with producer warps, rank-0 bf16_3x, "
+    "rank-1 correction single-pass bf16; counterpart of pallas_v4",
     family="cuda",
 )
 def gridder_cuda_v4(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):
@@ -201,8 +205,8 @@ def gridder_cuda_v4(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK
 
 @register(
     "gridder", "cuda_v5",
-    "v4 + channel-recurrence phasor generation (exact resync every 16 "
-    "channels), c-major; counterpart of pallas_v5",
+    "v4's policy on bf16 mma.sync + channel-recurrence phasor generation "
+    "(exact resync every 16 channels), c-major; counterpart of pallas_v5",
     family="cuda", uniform_channels=True, fallback="cuda_v4",
 )
 def gridder_cuda_v5(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):

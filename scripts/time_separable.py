@@ -45,11 +45,19 @@ def main(argv) -> int:
     build.library()
     print(f"{tag} build {time.perf_counter() - t0:.1f} s", flush=True)
     lines = build.build_log.splitlines()
+    # the N = 32 instances: (degridder|gridder)_sep_v<3|4|5>_kernel<32>, or
+    # before their redesign (degridder|gridder)_separable_kernel<32, bf16, recur>
+    stems = (re.compile(r"(degridder|gridder)_sep_v(\d)_kernelILi32E"),
+             re.compile(r"(degridder|gridder)_separable_kernelILi32ELb(\d)ELb(\d)"))
     for i, line in enumerate(lines):
-        kernel = re.search(r"(degridder|gridder)_separable_kernelILi32ELb(\d)ELb(\d)", line)
-        if "Compiling entry" in line and kernel:
-            workload, bf16, recur = kernel.groups()
-            rung = "cuda_v5" if recur == "1" else "cuda_v4" if bf16 == "1" else "cuda_v3"
+        found = [m for m in (stem.search(line) for stem in stems) if m]
+        if "Compiling entry" in line and found:
+            groups = found[0].groups()
+            if len(groups) == 2:
+                workload, rung = groups[0], f"cuda_v{groups[1]}"
+            else:
+                workload, bf16, recur = groups
+                rung = "cuda_v5" if recur == "1" else "cuda_v4" if bf16 == "1" else "cuda_v3"
             print(f"{tag} ptxas {workload} {rung} N = 32 |",
                   " | ".join(x.strip() for x in lines[i + 2:i + 4]))
 
