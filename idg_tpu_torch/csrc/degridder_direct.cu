@@ -1,49 +1,79 @@
 // K9a, the direct degridder: subgrids c64[S, P, N, N] -> visibilities
-// c64[S, T, C, P], FP32 on the CUDA cores, exact at any w.
+// c64[S, T, C, P], exact at any w, its complex MAC on the TF32 tensor cores.
 //
-// Replaces idg_tpu/ops/pallas/degridder.py:_degridder_direct (body
-// _kernel_direct), registered as degridder pallas_v1 and, with the channel
-// recurrence (kRecur), pallas_v2. It computes the adjoint of K8a
+// Replaces idg_tpu/ops/pallas/degridder.py:_degridder_direct (degridder.py:127,
+// body _kernel_direct :71), registered as degridder pallas_v1 and, with the
+// channel recurrence (kRecur), pallas_v2. It computes the adjoint of K8a
 // (degridder_reference.cu:39-115):
 //   pix'[y,x,p] = A1 · (sph·P) · A2ᴴ                                  (prologue)
 //   vis[t,c,p]  = Σ_{y,x} pix'[y,x,p] · e^{i(pi[t,y,x]·k_c − po[y,x])}
 // with pi = u·l + v·m + w·n and po = po_x + po_y + w_off·n, JAX's phase.
+// kRecur steps the phasor over a group of kChanGroup channels by one complex
+// multiply with e^{i·pi·Δk}, Δk = k[1] − k[0], from an exact phasor at the
+// group's first channel (JAX's pallas_v2 starts once, at channel 0).
 //
-// What bounds it on an H100: FP32 arithmetic, as in K8a: one accurate
-// sincosf and four complex multiply-adds per pixel and visibility, or with
-// kRecur one complex multiply in place of the sincosf.
+// The sum is a skinny product per channel, vis[t, (p, re|im)] =
+// Φ[t, (pixel, re|im)] · X[(pixel, re|im), (p, re|im)], M = T, K = 2N²,
+// N = 8, with X the prepared pixels laid out per pixel as
+// [[x_re, x_im], [−x_im, x_re]] over the four pols. Φ (T·C × N² phasors a
+// subgrid) is formed where the tensor cores read it, in registers.
 //
-// Design: one block per subgrid, 256 threads. The prologue writes the
-// prepared pixels (P·N²·8 B = 32 KB at N = 32) and each pixel's (n, po)
-// into shared memory. Each thread then owns one timestep and a group of
-// kChanGroup channels: it sums over the N² pixels, which every thread of a
-// warp reads at the same time (broadcasts), with kChanGroup × 4 complex
-// accumulators in registers and pi computed once per pixel for the group.
-// So no reduction crosses threads. With kRecur the group's first phasor and
-// the step e^{i·pi·Δk}, Δk = k[1] − k[0], take two sincosf per pixel, and
-// the phasor advances by one complex multiply per channel: the recurrence
-// restarts exactly at each group's first channel (JAX's starts once, at
-// channel 0). One thread owning all 16 channels would need 128 accumulator
-// registers; a group of 8 keeps it near 100.
+// What bounds it on an H100, per (visibility, pixel) pair (5.14·10¹⁰ in the
+// default problem): in the FFMA design the FP32 CUDA cores (16 FFMA of MAC,
+// and in cuda_v1 ~30 instructions of accurate sincosf a pair). Here the MAC
+// is three TF32 passes on the tensor cores (10 ms at the 495 TFLOP/s of
+// wgmma; mma.sync reaches less); the CUDA cores form Φ and split it:
+// cuda_v2 one complex multiply and the split of two values a pair, and two
+// exact phasors a (t, pixel) and channel group, cuda_v1 one exact phasor a
+// pair, two MUFU on the SFU (a 24.6 ms floor) after the 2π reduction
+// (common.cuh:expi_reduced; the gridder's coherent sums need its unit-circle
+// step, these do not). Diagnostic copies (scripts/time_direct.py --drop)
+// took ~29 ms (v2) without the products and ~22 without the phasors,
+// against ~41 in full (PERF.md).
+//
+// Design: one block per subgrid, 8 warps. The prologue writes the prepared
+// pixels and each pixel's (l, m, n, po) into shared memory (48 KB at
+// N = 32). A warp's work item is 16 timesteps (rows g and g+8 of mma.sync
+// m16n8k8, g = lane / 4) × one group of kChanGroup channels, each channel
+// its own accumulator, so the recurrence runs inside a thread. K walks the
+// pixels, 4 a k step (t = lane % 4): the thread forms the phasors of its two
+// timesteps at its pixel for the 8 channels and splits them into TF32 hi/lo
+// in the A registers (wgmma.cuh:split_unit_tf32); the pixel's B fragment
+// (two values, read from shared memory and split) serves all 8 channels.
+// The tensor cores' float32 accumulation truncates, so every 16 pixels'
+// products start fresh and fold into round-to-nearest running sums in
+// registers. The phases are formed in the plain version's operation order
+// (common.cuh:phase_index).
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
+
+// Diagnostic copies only (scripts/time_direct.py --drop): 1 drops the
+// products, 2 the phasors (each k step takes its pixel's first); the results
+// are wrong.
+#ifndef IDG_DIRECT_DROP
+#define IDG_DIRECT_DROP 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kChanGroup = 8;  // ops/cuda/degridder_direct.py CHANNEL_GROUP
+constexpr int kFoldSteps = 4;  // k steps (4 pixels each) of products before a fold
+constexpr bool kProducts = IDG_DIRECT_DROP != 1;
+constexpr bool kPhasors = IDG_DIRECT_DROP != 2;
 
 template <int N>
 constexpr size_t smem_bytes() {
-  return (size_t)N * N * idg::kPols * sizeof(float2)  // prepared pixels
-         + (size_t)N * N * sizeof(float2)             // (n, po) per pixel
-         + (size_t)2 * N * sizeof(float);             // l, m
+  return (size_t)N * N * idg::kPols * sizeof(float2)  // prepared pixels [N·N][P]
+         + (size_t)N * N * sizeof(float4);            // (l, m, n, po) per pixel
 }
 
 template <int N, bool kRecur>
-__global__ void __launch_bounds__(kThreads) degridder_direct_kernel(
+__global__ void __launch_bounds__(kThreads, 2) degridder_direct_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float* __restrict__ k,            // [C]
     const float* __restrict__ w_off,        // [S]
@@ -62,13 +92,13 @@ __global__ void __launch_bounds__(kThreads) degridder_direct_kernel(
     int T, int C, int nr_stations) {
   using namespace idg;
   extern __shared__ float4 smem[];
-  float4* s_pix = smem;                                           // [N·N][2] (4 pols)
-  float2* s_geo = reinterpret_cast<float2*>(smem + 2 * N * N);   // [N·N] (n, po)
-  float* s_l = reinterpret_cast<float*>(s_geo + N * N);          // [N]
-  float* s_m = s_l + N;                                           // [N]
+  float2* s_pix = reinterpret_cast<float2*>(smem);           // [N·N][P]
+  float4* s_geo = smem + N * N * kPols / 2;                   // [N·N] (l, m, n, po)
 
   const int s = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  uint32_t sink = 0;
   const size_t nn = (size_t)N * N;
   const float2* sub_s = subgrids + (size_t)s * kPols * nn;
 
@@ -86,78 +116,92 @@ __global__ void __launch_bounds__(kThreads) degridder_direct_kernel(
     }
     float2 o[kPols];
     jones_degridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, p, o);
-    s_pix[2 * q + 0] = make_float4(o[0].x, o[0].y, o[1].x, o[1].y);
-    s_pix[2 * q + 1] = make_float4(o[2].x, o[2].y, o[3].x, o[3].y);
+#pragma unroll
+    for (int i = 0; i < kPols; ++i) s_pix[q * kPols + i] = o[i];
     const float nq = n[q];
-    s_geo[q] = make_float2(nq, po_x[(size_t)s * N + q % N] + po_y[(size_t)s * N + q / N] +
-                                   woff * nq);
-  }
-  for (int e = tid; e < N; e += kThreads) {
-    s_l[e] = l[e];
-    s_m[e] = m[e];
+    s_geo[q] = make_float4(l[q % N], m[q / N], nq,
+                           phase_offset(po_x[(size_t)s * N + q % N],
+                                        po_y[(size_t)s * N + q / N], woff, nq));
   }
   __syncthreads();
 
   const float* uvw_s = uvw + (size_t)s * T * 3;
   const int groups = (C + kChanGroup - 1) / kChanGroup;
+  const int items = (T + 15) / 16 * groups;
   const float dk = C > 1 ? k[1] - k[0] : 0.0f;
+  // lane (g, t) reads B[(pixel, re), (p, ri)] and B[(pixel, im), (p, ri)],
+  // p = g / 2, ri = g % 2: (x_re, −x_im) or (x_im, x_re)
+  const int pol = g >> 1;
+  const bool ri = g & 1;
   // no barrier inside this loop: the shared data is read-only from here on
-  for (int item = tid; item < T * groups; item += kThreads) {
-    const int t = item / groups, c0 = (item % groups) * kChanGroup;
+  for (int item = warp; item < items; item += kWarps) {
+    const int ta = (item / groups) * 16 + g, tb = ta + 8;
+    const int c0 = (item % groups) * kChanGroup;
     const int nc = min(kChanGroup, C - c0);
-    const float u = uvw_s[t * 3 + 0], v = uvw_s[t * 3 + 1], w = uvw_s[t * 3 + 2];
+    float ua = 0.0f, va = 0.0f, wa = 0.0f, ub = 0.0f, vb = 0.0f, wb = 0.0f;
+    if (ta < T) ua = uvw_s[3 * ta], va = uvw_s[3 * ta + 1], wa = uvw_s[3 * ta + 2];
+    if (tb < T) ub = uvw_s[3 * tb], vb = uvw_s[3 * tb + 1], wb = uvw_s[3 * tb + 2];
     float kc[kChanGroup];
-    float2 acc[kChanGroup][kPols];
+    float sum[kChanGroup][4];
 #pragma unroll
     for (int j = 0; j < kChanGroup; ++j) {
       kc[j] = k[min(c0 + j, C - 1)];
 #pragma unroll
-      for (int p = 0; p < kPols; ++p) acc[j][p] = make_float2(0.0f, 0.0f);
+      for (int e = 0; e < 4; ++e) sum[j][e] = 0.0f;
     }
-    for (int y = 0; y < N; ++y) {
-      const float vm = v * s_m[y];
-#pragma unroll 2
-      for (int x = 0; x < N; ++x) {
-        const int q = y * N + x;
-        const float2 geo = s_geo[q];
-        const float pi = u * s_l[x] + vm + w * geo.x;
-        const float4 pa = s_pix[2 * q + 0], pb = s_pix[2 * q + 1];
-        const float2 px[kPols] = {make_float2(pa.x, pa.y), make_float2(pa.z, pa.w),
-                                  make_float2(pb.x, pb.y), make_float2(pb.z, pb.w)};
-        if constexpr (kRecur) {
-          float sn, cs;
-          sincosf(pi * kc[0] - geo.y, &sn, &cs);
-          float2 ph = make_float2(cs, sn);
-          sincosf(pi * dk, &sn, &cs);
-          const float2 d = make_float2(cs, sn);
+    for (int q0 = 0; q0 < N * N; q0 += 4 * kFoldSteps) {
+      float acc[kChanGroup][4] = {};
+#pragma unroll 1
+      for (int q = q0 + t4; q < q0 + 4 * kFoldSteps; q += 4) {
+        const float4 geo = s_geo[q];
+        const float2 x = s_pix[q * kPols + pol];
+        float4 b;
+        split_tf32_raw(ri ? x.y : x.x, b.x, b.z);
+        split_tf32_raw(ri ? x.x : -x.y, b.y, b.w);
+        const float pia = phase_index(ua, va, wa, geo.x, geo.y, geo.z);
+        const float pib = phase_index(ub, vb, wb, geo.x, geo.y, geo.z);
+        float2 pha{}, phb{}, da{}, db{};
+        if constexpr (kRecur || !kPhasors) {
+          pha = expi_reduced(__fsub_rn(__fmul_rn(pia, kc[0]), geo.w));
+          phb = expi_reduced(__fsub_rn(__fmul_rn(pib, kc[0]), geo.w));
+        }
+        if constexpr (kRecur && kPhasors) {
+          da = expi_reduced(pia * dk);
+          db = expi_reduced(pib * dk);
+        }
 #pragma unroll
-          for (int j = 0; j < kChanGroup; ++j) {
-            if (j < nc) {
-#pragma unroll
-              for (int p = 0; p < kPols; ++p) cmac(acc[j][p], px[p], ph);
-              ph = cmul(ph, d);
-            }
+        for (int j = 0; j < kChanGroup; ++j) {
+          if constexpr (!kRecur && kPhasors) {
+            pha = expi_reduced(__fsub_rn(__fmul_rn(pia, kc[j]), geo.w));
+            phb = expi_reduced(__fsub_rn(__fmul_rn(pib, kc[j]), geo.w));
           }
-        } else {
+          float a_hi[4], a_lo[4];
+          split_phasors(pha, phb, a_hi, a_lo);
+          if constexpr (kProducts) {
+            mma3_tf32_16x8(acc[j], a_hi, a_lo, b);
+          } else {
 #pragma unroll
-          for (int j = 0; j < kChanGroup; ++j) {
-            if (j < nc) {
-              float sn, cs;
-              sincosf(pi * kc[j] - geo.y, &sn, &cs);
-              const float2 ph = make_float2(cs, sn);
-#pragma unroll
-              for (int p = 0; p < kPols; ++p) cmac(acc[j][p], px[p], ph);
-            }
+            for (int e = 0; e < 4; ++e) sink ^= __float_as_uint(a_hi[e]) ^ __float_as_uint(a_lo[e]);
+            sink ^= __float_as_uint(b.x) ^ __float_as_uint(b.w);
+          }
+          if constexpr (kRecur && kPhasors) {
+            pha = cmul(pha, da);
+            phb = cmul(phb, db);
           }
         }
       }
+#pragma unroll
+      for (int j = 0; j < kChanGroup; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[j][e] += acc[j][e];
     }
-    float4* o = reinterpret_cast<float4*>(out + (((size_t)s * T + t) * C + c0) * kPols);
+    if constexpr (!kProducts) sum[0][0] += __uint_as_float(sink & 0x007fffffu);
+    // sum[j] = {re, im of pol t4 at timestep ta, the same at tb}, channel c0 + j
 #pragma unroll
     for (int j = 0; j < kChanGroup; ++j) {
       if (j < nc) {
-        o[2 * j + 0] = make_float4(acc[j][0].x, acc[j][0].y, acc[j][1].x, acc[j][1].y);
-        o[2 * j + 1] = make_float4(acc[j][2].x, acc[j][2].y, acc[j][3].x, acc[j][3].y);
+        if (ta < T) out[(((size_t)s * T + ta) * C + c0 + j) * kPols + t4] = make_float2(sum[j][0], sum[j][1]);
+        if (tb < T) out[(((size_t)s * T + tb) * C + c0 + j) * kPols + t4] = make_float2(sum[j][2], sum[j][3]);
       }
     }
   }

@@ -1,7 +1,8 @@
 // Hopper helpers of the tensor-core kernels: the TF32 gridder and degridder
-// (gridder.cu, degridder.cu) and the bf16 separable rungs
-// (gridder_sep_bf16.cu, degridder_sep_bf16.cu): the TF32 split of a float32
-// value, shared-memory matrix descriptors, `wgmma` on TF32 and on bf16
+// (gridder.cu, degridder.cu), the direct rungs (gridder_direct.cu,
+// degridder_direct.cu) and the bf16 separable rungs (gridder_sep_bf16.cu,
+// degridder_sep_bf16.cu): the TF32 split of a float32 value, TF32
+// `mma.sync`, shared-memory matrix descriptors, `wgmma` on TF32 and on bf16
 // operands with its fences and its three-pass split product, and `cp.async`
 // copies into shared memory.
 //
@@ -35,6 +36,65 @@ __device__ __forceinline__ float tf32_rn(float x) {
 __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
   hi = tf32_rn(x);
   lo = tf32_rn(x - hi);
+}
+
+// d += a · b on one 16×8×8 TF32 tile (mma.sync, the direct rungs K8a and
+// K9a): a row-major 16×8 (4 registers), b column-major 8×8 (2), d 16×8
+// float32 (4). Ownership, with g = lane / 4 and t = lane % 4:
+//   a: {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}         (row, k)
+//   b: {(t, g), (t+4, g)}                                (k, col)
+//   d: {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}      (row, col)
+// The tensor cores read 19 bits of each operand register (sign, exponent and
+// 10 mantissa bits) and drop the rest.
+__device__ __forceinline__ void mma_tf32_16x8(float (&d)[4], const float (&a)[4], float b0,
+                                              float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
+        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// The "3xtf32" product of one 16×8×8 tile into d: lo·hi + hi·lo + hi·hi, with
+// b = (b0 hi, b1 hi, b0 lo, b1 lo).
+__device__ __forceinline__ void mma3_tf32_16x8(float (&d)[4], const float (&a_hi)[4],
+                                               const float (&a_lo)[4], float4 b) {
+  mma_tf32_16x8(d, a_lo, b.x, b.y);
+  mma_tf32_16x8(d, a_hi, b.z, b.w);
+  mma_tf32_16x8(d, a_hi, b.x, b.y);
+}
+
+// The TF32 split of a finite x in three instructions: hi = x rounded to TF32
+// (to nearest, ties away from zero, as tf32_rn, whose cvt.rna takes four
+// with its check for Inf and NaN), lo = x − hi exactly, left in float32:
+// mma.sync reads 19 bits of each register, so lo counts as lo with its 13
+// low bits dropped (|lo| ≤ 2^-11·|x|, so within 2^-21·|x|).
+__device__ __forceinline__ void split_tf32_raw(float x, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  lo = x - hi;
+}
+
+// The TF32 split of a phasor's component, |x| ≤ 1, on the FP32 pipe alone:
+// hi = x rounded to a multiple of 2^-11 by the float32 rounding of
+// x + 1.5·2^12 (at most 11 significant bits, so exactly TF32), lo = x − hi
+// exactly (|lo| ≤ 2^-12), read by mma.sync with its 13 low bits dropped:
+// within 2^-22 of the phasor's unit magnitude. Three FP32 instructions,
+// where split_tf32_raw takes two on the INT32 pipe, half as wide on Hopper.
+__device__ __forceinline__ void split_unit_tf32(float x, float& hi, float& lo) {
+  constexpr float kRound = 6144.0f;   // 1.5·2^12: its ulp is 2^-11
+  hi = __fsub_rn(__fadd_rn(x, kRound), kRound);
+  lo = __fsub_rn(x, hi);
+}
+
+// The split A fragment of two phasors of one k-column pair, as the direct
+// kernels lay Φ out: a = {re(row g), re(row g+8), im(row g), im(row g+8)},
+// each split into TF32 hi and lo (split_unit_tf32).
+__device__ __forceinline__ void split_phasors(float2 top, float2 bottom, float (&hi)[4],
+                                              float (&lo)[4]) {
+  split_unit_tf32(top.x, hi[0], lo[0]);
+  split_unit_tf32(bottom.x, hi[1], lo[1]);
+  split_unit_tf32(top.y, hi[2], lo[2]);
+  split_unit_tf32(bottom.y, hi[3], lo[3]);
 }
 
 // Float index of (row, k) in a core-matrix tile of kc 4-wide K chunks.

@@ -5,12 +5,14 @@ The adjoint of ops/cuda/gridder_direct.py (degridder_reference.cu:39-115):
   pix'[y,x,p] = A1 · (sph·P) · A2ᴴ                            (prologue)
   vis[t,c,p] = Σ_{y,x} pix'[y,x,p] · e^{i·(pi[t,y,x]·k_c − po[y,x])}
 with pi = u·l + v·m + w·n and po = po_x + po_y + w_off·n, exact at any w.
-`cuda_v1` evaluates every phasor with an exact sincos; `cuda_v2` advances it
+`cuda_v1` evaluates every phasor exactly; `cuda_v2` advances it
 over the channels by repeated complex multiplies with e^{i·pi·Δk}, assuming
 uniform channel spacing. The kernel gives each thread a group of
 CHANNEL_GROUP channels of one timestep, so the recurrence restarts with an
 exact sincos at each group's first channel (JAX's pallas_v2 starts once, at
-channel 0); the plain version does the same.
+channel 0); the plain version does the same. The kernel takes the complex
+MAC on the TF32 tensor cores in three passes ("3xtf32"); the plain version
+contracts in float32.
 
 `degridder_cuda_v1` / `degridder_cuda_v2` dispatch on the staging's device:
 plain version on the CPU, the kernel on a card (or raise).
@@ -108,8 +110,9 @@ def _degridder_direct(wrapper, params: IDGParams, stg: Staged, subgrids: torch.T
 
 @register(
     "degridder", "cuda_v1",
-    "CUDA C++ FP32 direct degridder: taper+Jones prologue, full-phase sincos "
-    "per (t,c,pixel), exact at any w; counterpart of pallas_v1",
+    "CUDA C++ direct degridder: taper+Jones prologue, an exact phasor per "
+    "(t,c,pixel) (2π-reduced, SFU), complex MAC on TF32 mma.sync (3 passes), "
+    "exact at any w; counterpart of pallas_v1",
     family="cuda",
 )
 def degridder_cuda_v1(params: IDGParams, stg: Staged, subgrids: torch.Tensor):
@@ -121,9 +124,9 @@ def degridder_cuda_v1(params: IDGParams, stg: Staged, subgrids: torch.Tensor):
 
 @register(
     "degridder", "cuda_v2",
-    "CUDA C++ FP32 direct degridder with the channel recurrence: 2 sincos per "
-    "(t,pixel) and channel group, one complex multiply per channel; "
-    "counterpart of pallas_v2",
+    "CUDA C++ direct degridder with the channel recurrence: 2 exact phasors "
+    "per (t,pixel) and channel group, one complex multiply per channel, "
+    "complex MAC on TF32 mma.sync (3 passes); counterpart of pallas_v2",
     family="cuda", uniform_channels=True, fallback="cuda_v1",
 )
 def degridder_cuda_v2(params: IDGParams, stg: Staged, subgrids: torch.Tensor):

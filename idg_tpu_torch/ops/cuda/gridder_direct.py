@@ -7,12 +7,14 @@ at any w:
   phase[t,c,y,x] = po[y,x] − (u_t·l_x + v_t·m_y + w_t·n_yx)·k_c,
   po = po_x[x] + po_y[y] + w_off·n[y,x]
   pix[y,x,p] = Σ_{t,c} vis[t,c,p] · e^{i·phase}
-then Jones A1ᴴ·P·A2 and the taper. `cuda_v1` evaluates every phasor with an
-exact sincos. `cuda_v2` advances the phasor over the channels by repeated
+then Jones A1ᴴ·P·A2 and the taper. `cuda_v1` evaluates every phasor exactly
+(the kernel: reduced by 2π, then the SFU). `cuda_v2` advances the phasor over the channels by repeated
 complex multiplies with e^{−i·pi·Δk}, Δk = k[1] − k[0], and restarts it from
 an exact sincos every CHANNEL_GROUP channels (JAX's pallas_v2 starts once, at
 channel 0, and drifts past the 1e-5 gate at C = 256); it assumes uniform
-channel spacing.
+channel spacing. The kernel takes the complex MAC as a product on the TF32
+tensor cores in three passes ("3xtf32", ops/precision.py), float32 quality;
+the plain version below contracts in float32.
 
 Each wrapper dispatches on the device of the staging it is given: a CPU
 staging runs the plain version, a CUDA staging launches the kernel (or
@@ -131,8 +133,9 @@ def _gridder_direct(wrapper, params: IDGParams, stg: Staged, recurrence: bool):
 
 @register(
     "gridder", "cuda_v1",
-    "CUDA C++ FP32 direct gridder: full-phase sincos per (t,c,pixel), exact "
-    "at any w; counterpart of pallas_v1",
+    "CUDA C++ direct gridder: an exact phasor per (t,c,pixel) (2π-reduced, SFU), "
+    "complex MAC on TF32 mma.sync (3 passes), exact at any w; counterpart of "
+    "pallas_v1",
     family="cuda",
 )
 def gridder_cuda_v1(params: IDGParams, stg: Staged):
@@ -143,8 +146,9 @@ def gridder_cuda_v1(params: IDGParams, stg: Staged):
 
 @register(
     "gridder", "cuda_v2",
-    "CUDA C++ FP32 direct gridder with the channel recurrence: 2 sincos per "
-    "(t,pixel), one complex multiply per channel; counterpart of pallas_v2",
+    "CUDA C++ direct gridder with the channel recurrence: exact phasors every "
+    "8 channels, one complex multiply per channel, complex MAC on TF32 "
+    "mma.sync (3 passes); counterpart of pallas_v2",
     family="cuda", uniform_channels=True, fallback="cuda_v1",
 )
 def gridder_cuda_v2(params: IDGParams, stg: Staged):

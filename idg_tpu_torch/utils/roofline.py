@@ -23,14 +23,16 @@ PEAK_FLOP_PER_S = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 H100_SXM_NAMES = ("H100 80GB HBM3", "H100 SXM")
 
 # the rungs whose products run on the bf16 tensor cores, and those on the
-# TF32 tensor cores (K1 and K2, and each at rank 1); every other rung runs on
-# the FP32 CUDA cores
+# TF32 tensor cores (K1 and K2, and each at rank 1; the direct rungs K8a and
+# K9a); every other rung runs on the FP32 CUDA cores
 TENSOR_CORE_VERSIONS = frozenset({
     ("gridder", "cuda_v4"), ("gridder", "cuda_v5"),
     ("degridder", "cuda_v4"), ("degridder", "cuda_v5"), ("degridder", "cuda_v6"),
 })
 TF32_VERSIONS = frozenset({
+    ("gridder", "cuda_v1"), ("gridder", "cuda_v2"),
     ("gridder", "cuda_v6"), ("gridder", "cuda_v7"),
+    ("degridder", "cuda_v1"), ("degridder", "cuda_v2"),
     ("degridder", "cuda_v7"), ("degridder", "cuda_v8"),
 })
 

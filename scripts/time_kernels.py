@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's gridder K1 (both forms), degridder K2 (both forms), the
-direct gridder cuda_v2 and K10 (vadd) of one checkout on one CUDA card, for
-A/B comparisons of two versions of the kernels.
+"""Time the port's gridder K1 (both forms), degridder K2 (both forms) and
+K10 (vadd) of one checkout on one CUDA card, for A/B comparisons of two
+versions of the kernels (the direct rungs: scripts/time_direct.py).
 
-    python scripts/time_kernels.py ROOT TAG [k1,k2,v2,vadd]
+    python scripts/time_kernels.py ROOT TAG [k1,k2,vadd]
 
 ROOT is a checkout of the repository (the current one, or the parent commit
 unpacked with `git archive` into a directory that .gitignore lists); its
@@ -25,7 +25,7 @@ import time
 
 def main(argv) -> int:
     root, tag = argv[1], argv[2]
-    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "v2", "vadd"]
+    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "vadd"]
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -60,7 +60,7 @@ def main(argv) -> int:
     def ms(fn, *args):
         return time_kernel(fn, *args, harness=harness).seconds * 1e3
 
-    if {"k1", "k2", "v2"} & set(chosen):
+    if {"k1", "k2"} & set(chosen):
         params = IDGParams.from_env()
         obs = make_perf_observation(params)
         md = obs.metadata
@@ -91,10 +91,6 @@ def main(argv) -> int:
                      p, s, tgrid._finish_extract(sb, o), r),
                  (params, small, pieces[:k], 2, oyx[:k]), (params, stg, pieces, 2, oyx)),
             ]
-        if "v2" in chosen:
-            cases.append(("gridder_cuda_v2", kernels.gridder_cuda_v2,
-                          lambda p, s: kernels.gridder_direct_plain(p, s, True),
-                          (params, small), (params, stg)))
         for name, kernel, plain, small_args, full_args in cases:
             err = check_error(kernel(*small_args), plain(*small_args), verbose=False).mean_error
             print(f"{tag} {name}: {ms(kernel, *full_args):.3f} ms, vs plain {err:.3e}",

@@ -17,6 +17,7 @@ chip_smoke.py.
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import warnings
@@ -36,6 +37,11 @@ from idg_tpu_torch.models.reference import degridder_reference, gridder_referenc
 from idg_tpu_torch.ops import cuda as kernels
 from idg_tpu_torch.ops import vadd as tvadd
 from idg_tpu_torch.ops.common import stage
+from idg_tpu_torch.ops.cuda.degridder import jones_degridder
+from idg_tpu_torch.ops.cuda.gridder import _station_jones, jones_gridder
+from idg_tpu_torch.ops.cuda.gridder_direct import (CHANNEL_GROUP, channel_step,
+                                                   direct_geometry, expi)
+from idg_tpu_torch.ops.precision import dot_mixed
 from idg_tpu_torch.ops.registry import get_kernel, list_kernels
 from idg_tpu_torch.types import from_numpy_observation
 from idg_tpu_torch.utils.compare import check_error
@@ -318,3 +324,153 @@ def test_sweep_check_on_cpu_passes_every_version():
         assert f"=== {workload} {version} (check) ===" in out.stdout
     assert len(versions) == 15
     assert out.stdout.count(">>> Result PASSED") == len(versions)
+
+
+def _cmatmul_3xtf32(a, b):
+    """Complex a [.., M, K] @ b [.., K, N] as the direct kernels lay it out for
+    the TF32 tensor cores: the real product [a_re | a_im] · [[b_re, b_im],
+    [−b_im, b_re]] (K8a: a = Φ, b = the visibilities; K9a: a = Φ, b = the
+    prepared pixels), taken as "3xtf32"."""
+    n = b.shape[-1]
+    lhs = torch.cat([a.real, a.imag], dim=-1)
+    rhs = torch.cat([torch.cat([b.real, b.imag], dim=-1),
+                     torch.cat([-b.imag, b.real], dim=-1)], dim=-2)
+    out = dot_mixed(lhs.float().contiguous(), rhs.float().contiguous(), "3xtf32")
+    return torch.complex(out[..., :n], out[..., n:])
+
+
+def _direct_3xtf32(workload, params, stg, sub, recurrence):
+    """The plain direct rung (ops/cuda/{gridder,degridder}_direct.py: the same
+    phases, phasors and recurrence) with its float32 contraction replaced
+    by the kernels' "3xtf32" product, in one chunk of subgrids."""
+    S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
+    N, P = params.subgrid_size, params.nr_correlations
+    k = stg.wavenumbers
+    pi, po = direct_geometry(stg, 0, S)                          # [S,T,NN], [S,1,NN]
+    a1, a2 = _station_jones(stg, 0, S)
+    sign = -1.0 if workload == "gridder" else 1.0
+    step = expi(sign * pi * channel_step(k))
+    groups = range(0, C, CHANNEL_GROUP) if recurrence else [None]
+    if workload == "gridder":
+        pix = 0
+        for c0 in groups:
+            chans = range(c0, min(c0 + CHANNEL_GROUP, C)) if recurrence else range(C)
+            ph = expi(po - pi * k[chans[0]]) if recurrence else None
+            for c in chans:
+                ph = ph if recurrence else expi(po - pi * k[c])
+                # Φᵀ [s, NN, T] · vis [s, T, P]
+                pix = pix + _cmatmul_3xtf32(ph.transpose(1, 2), stg.vis[:, :, c])
+                if recurrence:
+                    ph = ph * step
+        pix = jones_gridder(pix.reshape(S, N, N, P), a1, a2) * stg.sph[None, :, :, None]
+        return pix.permute(0, 3, 1, 2)
+    pix = sub.permute(0, 2, 3, 1) * stg.sph[None, :, :, None]
+    pix = jones_degridder(pix, a1, a2).reshape(S, N * N, P)
+    out = torch.empty((S, T, C, P), dtype=torch.complex64)
+    for c0 in groups:
+        chans = range(c0, min(c0 + CHANNEL_GROUP, C)) if recurrence else range(C)
+        ph = expi(pi * k[chans[0]] - po) if recurrence else None
+        for c in chans:
+            ph = ph if recurrence else expi(pi * k[c] - po)
+            out[:, :, c] = _cmatmul_3xtf32(ph, pix)                # [s,T,NN] · [s,NN,P]
+            if recurrence:
+                ph = ph * step
+    return out
+
+
+@pytest.mark.parametrize("case", ["w0", "w2e4", "c256"])
+@pytest.mark.parametrize("recurrence", [False, True], ids=["v1", "v2"])
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_direct_contraction_on_3xtf32_holds_the_oracle(workload, recurrence, case, small_params):
+    """The direct rungs with their complex MAC taken as the kernels take it
+    on the TF32 tensor cores (three passes, "3xtf32") in place of the plain
+    version's float32 einsum: against the f64 oracle within the 1e-5 gate,
+    and within 4e-7 of the float32 contraction's own error (the TF32 split
+    keeps ~2^-21 of each operand; the float32 phases, the same in both, set
+    the error: 5.3e-7 to 3.0e-6 observed, the two apart by 2.0e-7 at most,
+    gridder v1 at C = 256). C = 256 at T = 8 holds 32 restarts of the
+    recurrence."""
+    if case == "c256":
+        small_params = dataclasses.replace(small_params, nr_timesteps_subgrid=8,
+                                           nr_channels=256)
+        case = "w0"
+    params, obs, sub = _case(small_params, case)
+    tp, tobs = _port(params), from_numpy_observation(obs)
+    stg = stage(tp, tobs, "cpu")
+    sub_t = torch.from_numpy(np.ascontiguousarray(sub))
+    got = _direct_3xtf32(workload, tp, stg, sub_t, recurrence)
+    if workload == "gridder":
+        plain = kernels.gridder_direct_plain(tp, stg, recurrence)
+    else:
+        plain = kernels.degridder_direct_plain(tp, stg, sub_t, recurrence)
+    oracle = _oracle(workload, params, obs, sub)
+    err, err_plain = _error(got, oracle), _error(plain, oracle)
+    assert err <= GATE
+    assert abs(err - err_plain) <= 4e-7
+
+
+def _kernel_constants():
+    """The float constants of csrc/common.cuh, by name."""
+    text = (ROOT / "idg_tpu_torch" / "csrc" / "common.cuh").read_text()
+    return {name: np.float32(value) for name, value in
+            re.findall(r"constexpr float (k\w+) = ([-+0-9.eE]+)f;", text)}
+
+
+def _fma32(a, b, c):
+    """fmaf in float32: the product and sum exact in float64, one rounding."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _stress_phases():
+    """Every float32 phase po − pi·k of the correctness problem (N = 32,
+    T = 128, C = 16) at w = 2·10⁴, as the port forms it (plain version)."""
+    from idg_tpu_torch.data import make_observation
+
+    params = tcfg.IDGParams.correctness_defaults()
+    obs, _ = make_observation(params)
+    stg = stage(params, _stress_w(obs, STRESS_W), "cpu")
+    pi, po = direct_geometry(stg, 0, stg.nr_subgrids)
+    return (po[:, :, None] - pi[:, :, None] * stg.wavenumbers[:, None]).numpy().ravel()
+
+
+@pytest.mark.parametrize("model", ["reduced", "poly"])
+def test_phasor_reduction_model_holds_1e6(model):
+    """A model of the kernels' exact phasors with the constants of
+    csrc/common.cuh: expi_reduced takes k = round(x / 2π) by adding 1.5·2^23
+    and r = x − k·2π_hi − k·2π_lo in two FMAs, then the SFU on r (modelled
+    exactly: the SFU's own 2^-21.4 is the card's); expi_poly reduces by π/2
+    and evaluates the Cephes polynomials, quadrant from the sum's low bits.
+    On every phase of the correctness problem at w = 2·10⁴, cos and sin are
+    within 1e-6 of numpy's on the float32 phase (~30 rad at most),
+    and on float32 phases up to 10⁴ rad; |r| stays within π (π/4) but for
+    the rounding of x / 2π (x / (π/2)) to float32, ~1e-4 at 10⁴ rad."""
+    const = _kernel_constants()
+    x = _stress_phases()
+    assert np.abs(x).max() > 25.0
+    # and far past them: |x| up to 10⁴ rad
+    x = np.concatenate([x, np.linspace(-1e4, 1e4, 200_001, dtype=np.float32)])
+    big = const["kRoundInt"]
+    if model == "reduced":
+        t = _fma32(x, const["kInv2Pi"], big)
+        q = (t - big).astype(np.float32)
+        r = _fma32(-q, const["k2PiLo"], _fma32(-q, const["k2PiHi"], x))
+        assert np.abs(r).max() <= np.pi + 1e-3
+        cs, sn = np.cos(r.astype(np.float64)), np.sin(r.astype(np.float64))
+    else:
+        t = _fma32(x, const["k2OverPi"], big)
+        q = (t - big).astype(np.float32)
+        r = _fma32(-q, const["kHalfPiLo"], _fma32(-q, const["kHalfPiHi"], x))
+        assert np.abs(r).max() <= np.pi / 4 + 1e-3
+        z = (r * r).astype(np.float32)
+        sn = _fma32(_fma32(_fma32(np.float32(-1.9515295891e-4), z, np.float32(8.3321608736e-3)),
+                           z, np.float32(-1.6666654611e-1)), (z * r).astype(np.float32), r)
+        cs = _fma32(_fma32(_fma32(np.float32(2.443315711809948e-5), z,
+                                  np.float32(-1.388731625493765e-3)), z,
+                           np.float32(4.166664568298827e-2)), (z * z).astype(np.float32),
+                    _fma32(np.float32(-0.5), z, np.float32(1.0)))
+        iq = t.view(np.int32)
+        cs, sn = np.where(iq & 1, -sn, cs), np.where(iq & 1, cs, sn)
+        cs, sn = np.where(iq & 2, -cs, cs), np.where(iq & 2, -sn, sn)
+    x64 = x.astype(np.float64)
+    assert np.abs(cs - np.cos(x64)).max() <= 1e-6
+    assert np.abs(sn - np.sin(x64)).max() <= 1e-6

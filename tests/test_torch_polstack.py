@@ -196,8 +196,10 @@ def test_bench_leaves_out_the_pipeline_of_an_unfused_gridder(small_params, capsy
     ("degridder", "cuda_v6", "bf16"), ("gridder", "cuda_v4", "bf16"),
     ("degridder", "cuda_v5", "bf16"), ("gridder", "cuda_v6", "tf32"),
     ("degridder", "cuda_v7", "tf32"), ("gridder", "cuda_v3", "fp32"),
-    ("gridder", "cuda_v7", "tf32"), ("gridder", "cuda_v2", "fp32"),
-    ("degridder", "cuda_v8", "tf32"), ("degridder", "cuda_v2", "fp32"),
+    ("gridder", "cuda_v7", "tf32"), ("gridder", "cuda_v2", "tf32"),
+    ("degridder", "cuda_v8", "tf32"), ("degridder", "cuda_v2", "tf32"),
+    ("gridder", "cuda_v1", "tf32"), ("degridder", "cuda_v1", "tf32"),
+    ("degridder", "cuda_v3", "fp32"),
 ])
 def test_roofline_takes_the_unit_of_the_rung(workload, version, unit):
     assert roofline.unit(workload, version) == unit

@@ -115,17 +115,21 @@ def test_dot_mixed_matches_jax(mode):
 
 # the products per rank, [rows × depth] · [depth × cols]: K1's lhs_r [2N × V]
 # · W [V × 2NP] and K2's lhs_r [4N × 2N] · rhs [2N × V], at V = 2048, N = 32
-# and 16
+# and 16; and the direct rungs' skinny products (N = 8 columns, (p, re|im)):
+# K8a's Φ [N² × 2TC] · vis [2TC × 8] and K9a's Φ [64 timesteps × 2N²] ·
+# pixels [2N² × 8], at N = 32, T = 128, C = 16
 TF32_PRODUCTS = [
     pytest.param(64, 256, 2048, id="64-256"), pytest.param(32, 128, 2048, id="32-128"),
     pytest.param(128, 2048, 64, id="k2-n32"), pytest.param(64, 2048, 32, id="k2-n16"),
+    pytest.param(1024, 8, 4096, id="k8a"), pytest.param(64, 8, 2048, id="k9a"),
 ]
 
 
 @pytest.mark.parametrize("rows,cols,depth", TF32_PRODUCTS)
 def test_3xtf32_is_within_2e20_of_float64(rows, cols, depth):
-    """"3xtf32", the product of the gridder K1 and the degridder K2 (three
-    TF32 passes), at their shapes on phasor-like operands: within 2⁻²⁰ of
+    """"3xtf32", the product of the gridder K1, the degridder K2 and the
+    direct rungs K8a and K9a (three TF32 passes), at their shapes on
+    phasor-like operands: within 2⁻²⁰ of
     the float64 product in normwise relative error (its lo·lo term and lo's
     rounding are ~2⁻²², float32's accumulation the rest), and closer than
     "3x2k" (bf16 splits keep 2⁻¹⁷)."""
