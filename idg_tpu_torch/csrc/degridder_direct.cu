@@ -162,8 +162,8 @@ __global__ void __launch_bounds__(kThreads, 2) degridder_direct_kernel(
         const float pib = phase_index(ub, vb, wb, geo.x, geo.y, geo.z);
         float2 pha{}, phb{}, da{}, db{};
         if constexpr (kRecur || !kPhasors) {
-          pha = expi_reduced(__fsub_rn(__fmul_rn(pia, kc[0]), geo.w));
-          phb = expi_reduced(__fsub_rn(__fmul_rn(pib, kc[0]), geo.w));
+          pha = expi_reduced(__fmaf_rn(pia, kc[0], -geo.w));
+          phb = expi_reduced(__fmaf_rn(pib, kc[0], -geo.w));
         }
         if constexpr (kRecur && kPhasors) {
           da = expi_reduced(pia * dk);
@@ -172,8 +172,8 @@ __global__ void __launch_bounds__(kThreads, 2) degridder_direct_kernel(
 #pragma unroll
         for (int j = 0; j < kChanGroup; ++j) {
           if constexpr (!kRecur && kPhasors) {
-            pha = expi_reduced(__fsub_rn(__fmul_rn(pia, kc[j]), geo.w));
-            phb = expi_reduced(__fsub_rn(__fmul_rn(pib, kc[j]), geo.w));
+            pha = expi_reduced(__fmaf_rn(pia, kc[j], -geo.w));
+            phb = expi_reduced(__fmaf_rn(pib, kc[j], -geo.w));
           }
           float a_hi[4], a_lo[4];
           split_phasors(pha, phb, a_hi, a_lo);

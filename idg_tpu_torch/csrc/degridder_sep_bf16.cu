@@ -1,9 +1,12 @@
-// K9b, degridder cuda_v4: subgrids c64[S, P, N, N] -> visibilities
-// c64[S, T, C, P], stage 1 in split bf16 on the tensor cores (`wgmma`).
+// K9b and K9c, degridder cuda_v4 and cuda_v5: subgrids c64[S, P, N, N] ->
+// visibilities c64[S, T, C, P], stage 1 in split bf16 on the tensor cores
+// (`wgmma`); cuda_v5 (kRecur) makes Φ by the channel recurrence.
 //
 // Replaces idg_tpu/ops/pallas/degridder.py:_kernel_separable (launcher
 // _degridder_separable_run, degridder.py:307, registered as pallas_v4 with
-// rank_precisions). Per subgrid and Taylor rank r, as the plain version
+// rank_precisions) and :_kernel_sep_recur (launcher _degridder_sep_recur_one
+// behind _chunked, degridder.py:559, pallas_v5). Per subgrid and Taylor
+// rank r, as the plain version
 // (ops/cuda/degridder_separable.py:degridder_separable_plain) takes it:
 //   B[y, (p,x)] = A1 · (sph·P) · A2ᴴ                                     (prologue)
 //   D_r[v, (p,x)] = Σ_y conj(Φy[v,y]) · (n^r ⊙ B)[y, (p,x)]             (stage 1)
@@ -12,16 +15,22 @@
 // hi = bf16(x), lo = bf16(x − hi) (round to nearest even); "3x" = lo·hi +
 // hi·lo + hi·hi for rank 0 and for every rank of an escalated rank, hi·hi
 // alone for rank 1 at rank ≤ 2 (ops/precision.py:rank_precisions). Stage 2
-// is float32. The output is written as [S, T, C, P] directly.
+// is float32. cuda_v4 takes an exact sincosf for every entry of Φ; cuda_v5
+// the channel recurrence (separable.cuh:phasor<true>: one complex multiply
+// a channel, an exact restart from k0 + c·Δk at every c % 16 == 0, c > 0;
+// uniform channel spacing assumed, the guard falls back to cuda_v4). The
+// output is written as [S, T, C, P] directly (the TPU kernels wrote
+// [S, P, V] and transposed).
 //
 // What bounds it on an H100: stage 1's products, 4 bf16 passes × 67.1 MFLOP
 // × 24,500 subgrids = 6.6e12 FLOP at the default problem, 6.65 ms at 989
-// TFLOP/s; around them, on the CUDA cores, 131,072 exact sincosf a subgrid
-// and stage 2 (~1 M FMA a subgrid at rank 2). The parent kernel (bf16
-// mma.sync) took 56 ms: every fragment came from a 32-bit shared-memory
-// load, the rank loop was outermost (Φ formed once per rank), and the
-// formation, the products and stage 2 ran on the same warps between
-// barriers.
+// TFLOP/s; around them, on the CUDA cores, Φ (cuda_v4: 131,072 exact
+// sincosf a subgrid; cuda_v5: one complex multiply an entry) and stage 2
+// (~1 M FMA a subgrid at rank 2). The parent kernels (bf16 mma.sync) took
+// 56 ms (v4) and 53 ms (v5): every fragment came from a 32-bit
+// shared-memory load, the rank loop was outermost (Φ formed once per rank,
+// v5's prologue too), and the formation, the products and stage 2 ran on
+// the same warps between barriers.
 //
 // Design (the degridder K2's, csrc/degridder.cu, with the contraction over
 // y as the plain version takes it):
@@ -32,6 +41,10 @@
 //    A tile of 32 visibilities is the 64-column rhs (the Φy_re column of
 //    each visibility, then its Φy_im column), formed once a tile for every
 //    rank. K = N is two k16 steps at N = 32, one at N = 16.
+//  - Tiles: cuda_v4 takes 32 consecutive visibilities v = t·C + c; cuda_v5
+//    32 timesteps of one channel, the t-tiles outer and the channels inner,
+//    so that a producer's recurrence carries from one channel to the next
+//    (separable.cuh:tile_span).
 //  - Stage 2 on the accumulators: a thread holds, for one output (p, x),
 //    D_r's four real products at 8 visibilities, so conj(Φy)·B comes out
 //    complex in its registers. Each rank, as soon as its products land, is
@@ -39,21 +52,27 @@
 //    and two FMAs an entry) into 8 running partial sums; one butterfly over
 //    the 8 lanes of a column group a tile then sums the warp's 8 x, and the
 //    N/8 warps of a pol meet in shared memory, where the producers add them
-//    and store the tile's [32, P] outputs, coalesced. Only the wgmma's own
-//    sum over y truncates; every other sum is round-to-nearest, and no sum
-//    runs across tiles (a visibility lives in one tile).
+//    and store the tile's [32, P] outputs. Only the wgmma's own sum over y
+//    truncates; every other sum is round-to-nearest, and no sum runs across
+//    tiles (a visibility lives in one tile).
 //  - Warp specialization: the consumer warpgroups issue the products and
 //    run stage 2; 8N producer threads form the next tile (768 threads at
 //    N = 32, 384 at N = 16). A producer owns one visibility and 4 x and 4
-//    y: eight exact sincosf, Φy's split stored 8 bytes at a time with the
-//    lanes of a warp on 16 rows × both halves of a 16-byte chunk (no bank
-//    conflicts), Φx into a padded [v][x] table that stage 2 reads without
-//    conflicts. The roles come through a warp shuffle and the ragged tile
-//    is masked by selects (C7520). One barrier a tile hands the stages over.
+//    y: Φx and Φy there (cuda_v4: eight exact sincosf; cuda_v5: the
+//    recurrence, the state cur and step of its 8 entries in shared memory,
+//    separable.cuh:phasors_shared, the phase offsets and axis values read at
+//    the restarts alone: in registers they spilled),
+//    Φy's split stored 8 bytes at a time with the lanes of a warp on 16
+//    rows × both halves of a 16-byte chunk (no bank conflicts), Φx into a
+//    padded [v][x] table that stage 2 reads without conflicts. The roles come
+//    through a warp shuffle and the ragged tile is masked by selects
+//    (C7520); the recurrence's three cases branch on the channel, the same
+//    for the whole block. One barrier a tile hands the stages over.
 //  - Shared memory: n^r ⊙ B is 32 KB a rank at N = 32 (hi and lo), a stage
-//    17 KB. Up to five ranks fit beside two stages at N = 32 (every rank at
-//    N = 16); rank 6 at N = 32 goes in two groups, each forming its lhs and
-//    walking every tile again, adding its visibilities to the first's.
+//    17 KB. Up to five ranks fit beside two stages at N = 32 (four beside
+//    cuda_v5's 32 KB of recurrence state; every rank at N = 16); above that
+//    the ranks go in two groups, each forming its lhs and walking every tile
+//    again (cuda_v5 from channel 0), adding its visibilities to the first's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,8 +109,10 @@ struct Tile {
   static constexpr size_t kStage = 2 * kBytesR + kBytesPhx + kVT * sizeof(float);
   // the warps' stage-2 sums, two tiles: [2][kConsWarps][kVT]
   static constexpr size_t kBytesRed = 2 * (size_t)kConsWarps * kVT * sizeof(float2);
-  __host__ __device__ static constexpr size_t smem_bytes(int group) {
-    return 2 * (size_t)group * kBytesL + 2 * kStage + kBytesRed;
+  // cuda_v5's recurrence state: (cur, step) of a producer's 8 entries
+  static constexpr size_t kBytesState = (size_t)8 * kProducers * sizeof(float4);
+  __host__ __device__ static constexpr size_t smem_bytes(int group, bool recur) {
+    return 2 * (size_t)group * kBytesL + 2 * kStage + kBytesRed + (recur ? kBytesState : 0);
   }
   static_assert(kStage % 128 == 0 && kBytesR % 128 == 0 && kBytesPhx % 128 == 0,
                 "regions stay 128-byte aligned");
@@ -117,8 +138,10 @@ __device__ __forceinline__ void mma_rank(const unsigned char* lhs, const unsigne
   }
 }
 
-template <int N>
-__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degridder_sep_v4_kernel(
+// The kernel of both rungs (cuda_v5 with kRecur); each rung's __global__
+// below calls it.
+template <int N, bool kRecur>
+__device__ __forceinline__ void degridder_sep(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float* __restrict__ mu,           // [S, T, C]
     const float* __restrict__ k,            // [C]
@@ -141,16 +164,18 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
   constexpr int kCons = TL::kConsumers;
   constexpr int kLd = TL::kLdX;
 
-  // [lhs hi: group slots][lhs lo: group slots][stage 0][stage 1][sums]
+  // [lhs hi: group slots][lhs lo: group slots][stage 0][stage 1][sums][state: [8][producers]]
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* lhs = smem;
   unsigned char* stages = smem + 2 * (size_t)group * TL::kBytesL;
   float2* red = reinterpret_cast<float2*>(stages + 2 * TL::kStage);
+  float4* state = reinterpret_cast<float4*>(stages + 2 * TL::kStage + TL::kBytesRed);
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
   const int V = T * C;
-  const int nt = (V + kVT - 1) / kVT;
+  const int nt = kRecur ? (T + kVT - 1) / kVT * C : (V + kVT - 1) / kVT;
+  const float dk = C > 1 ? k[1] - k[0] : 0.0f;   // the recurrence's channel step
   const size_t nn = (size_t)N * N;
   const float2* sub_s = subgrids + (size_t)s * kPols * nn;
   const float* uvw_s = uvw + (size_t)s * T * 3;
@@ -222,29 +247,53 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
   };
 
   // One producer's share of a tile: Φx and Φy of its visibility at its 4 x
-  // and 4 y (0 past V, by selects). Φy goes split into the visibility's
-  // rhs rows (re, then im), Φx into the [v][x] table, μ into its row.
+  // and 4 y (0 past the tile's visibilities, by selects). Φy goes split
+  // into the visibility's rhs rows (re, then im), Φx into the [v][x] table,
+  // μ into its row. cuda_v5 must form the tiles in order, from tile 0.
   auto form = [&](int tile, int buf) {
     unsigned char* st = stages + buf * TL::kStage;
     __nv_bfloat16* r_hi = reinterpret_cast<__nv_bfloat16*>(st);
     __nv_bfloat16* r_lo = reinterpret_cast<__nv_bfloat16*>(st + TL::kBytesR);
     float2* phx = reinterpret_cast<float2*>(st + 2 * TL::kBytesR);
     float* smu = reinterpret_cast<float*>(st + 2 * TL::kBytesR + TL::kBytesPhx);
-    const int v = tile * kVT + pv;
-    const bool live = v < V;
-    const int vc = min(v, V - 1), t = vc / C, c = vc - t * C;
-    const float kv = __ldg(k + c);
-    const float uk = __ldg(uvw_s + t * 3) * kv, vk = __ldg(uvw_s + t * 3 + 1) * kv;
+    const TileSpan sp = tile_span<kRecur, kVT>(tile, T, C);
     float2 px[4];
     float py_re[4], py_im[4];
+    if constexpr (kRecur) {
+      // timestep t of channel c: Φx[a0 + i, t] is entry i, Φy[a0 + i, t]
+      // entry 4 + i. A ragged tile's dead visibility steps too, on the last
+      // timestep's coordinates, and stays unmasked (no registers beside the
+      // state): its Φ is finite and its outputs are never stored.
+      const int c = tile % C, t = min((tile / C) * kVT + pv, T - 1);
+      float2 e[8];
+      phasors_shared<8>(
+          [&](int i, float& po, float& ax, float& coord) {
+            const int a = a0 + (i & 3);
+            po = __ldg((i < 4 ? po_x : po_y) + (size_t)s * N + a);
+            ax = __ldg((i < 4 ? l : m) + a);
+            coord = __ldg(uvw_s + t * 3 + (i >> 2));
+          },
+          k, c, dk, state + ptid, TL::kProducers, e);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float sn, cs;
-      sincosf(pox[i] - lx[i] * uk, &sn, &cs);
-      px[i] = live ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
-      sincosf(poy[i] - my[i] * vk, &sn, &cs);
-      py_re[i] = live ? cs : 0.0f;
-      py_im[i] = live ? sn : 0.0f;
+      for (int i = 0; i < 4; ++i) {
+        px[i] = e[i];
+        py_re[i] = e[4 + i].x;
+        py_im[i] = e[4 + i].y;
+      }
+    } else {
+      const bool live = pv < sp.nv;
+      const int vc = min(tile * kVT + pv, V - 1), t = vc / C, c = vc - t * C;
+      const float kv = __ldg(k + c);
+      const float uk = __ldg(uvw_s + t * 3) * kv, vk = __ldg(uvw_s + t * 3 + 1) * kv;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float sn, cs;
+        sincosf(pox[i] - lx[i] * uk, &sn, &cs);
+        px[i] = live ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
+        sincosf(poy[i] - my[i] * vk, &sn, &cs);
+        py_re[i] = live ? cs : 0.0f;
+        py_im[i] = live ? sn : 0.0f;
+      }
     }
     const int ore = core_index_bf16(pv, a0, TL::kKC), oim = core_index_bf16(kVT + pv, a0, TL::kKC);
     uint2 hi, lo;
@@ -257,7 +306,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
     float4* prow = reinterpret_cast<float4*>(phx + pv * kLd + a0);
     prow[0] = make_float4(px[0].x, px[0].y, px[1].x, px[1].y);
     prow[1] = make_float4(px[2].x, px[2].y, px[3].x, px[3].y);
-    if (ptid < kVT) smu[ptid] = tile * kVT + ptid < V ? __ldg(mu_s + tile * kVT + ptid) : 0.0f;
+    if (ptid < kVT) smu[ptid] = ptid < sp.nv ? __ldg(mu_s + sp.base + ptid * sp.stride) : 0.0f;
   };
 
   // A tile's outputs [kVT][P]: the sums of the pol's N / 8 warps, stored
@@ -266,12 +315,13 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
     constexpr int kWarpsPol = N / 8;
     const float2* rb = red + (size_t)buf * TL::kConsWarps * kVT;
     if (ptid < kVT * kPols) {
-      const int vl = ptid / kPols, p = ptid % kPols, v = tile * kVT + vl;
+      const TileSpan sp = tile_span<kRecur, kVT>(tile, T, C);
+      const int vl = ptid / kPols, p = ptid % kPols;
       float2 total = rb[(p * kWarpsPol) * kVT + vl];
 #pragma unroll
       for (int h = 1; h < kWarpsPol; ++h) total = cadd(total, rb[(p * kWarpsPol + h) * kVT + vl]);
-      if (v < V) {
-        float2* o = out_s + (size_t)v * kPols + p;
+      if (vl < sp.nv) {
+        float2* o = out_s + (size_t)(sp.base + vl * sp.stride) * kPols + p;
         *o = first ? total : cadd(*o, total);
       }
     }
@@ -370,7 +420,36 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
   }
 }
 
+#define IDG_DEGRIDDER_SEP_PARAMS                                                           \
+  const float* __restrict__ uvw, const float* __restrict__ mu, const float* __restrict__ k,   \
+      const float* __restrict__ po_x, const float* __restrict__ po_y,                      \
+      const float* __restrict__ l, const float* __restrict__ m,                            \
+      const float* __restrict__ n, const float* __restrict__ sph,                          \
+      const float2* __restrict__ aterms, const int* __restrict__ aterm_index,              \
+      const int* __restrict__ station1, const int* __restrict__ station2,                  \
+      const float2* __restrict__ subgrids, float2* __restrict__ out, int T, int C,         \
+      int nr_stations, int w_rank, int group
+#define IDG_DEGRIDDER_SEP_ARGS                                                             \
+  uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2, subgrids, \
+      out, T, C, nr_stations, w_rank, group
+
+// One __global__ a rung, so that ptxas's report and the SASS name them apart.
 template <int N>
+__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks)
+    degridder_sep_v4_kernel(IDG_DEGRIDDER_SEP_PARAMS) {
+  degridder_sep<N, false>(IDG_DEGRIDDER_SEP_ARGS);
+}
+
+template <int N>
+__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks)
+    degridder_sep_v5_kernel(IDG_DEGRIDDER_SEP_PARAMS) {
+  degridder_sep<N, true>(IDG_DEGRIDDER_SEP_ARGS);
+}
+
+#undef IDG_DEGRIDDER_SEP_PARAMS
+#undef IDG_DEGRIDDER_SEP_ARGS
+
+template <int N, bool kRecur>
 cudaError_t launch(const float* uvw, const float* mu, const float* k, const float* po_x,
                    const float* po_y, const float* l, const float* m, const float* n,
                    const float* sph, const float2* aterms, const int* aterm_index,
@@ -386,13 +465,14 @@ cudaError_t launch(const float* uvw, const float* mu, const float* k, const floa
   if (err != cudaSuccess) return err;
   // as many ranks a group as fit beside the two stages
   int group = w_rank;
-  while (group > 1 && TL::smem_bytes(group) > (size_t)optin) --group;
-  const size_t bytes = TL::smem_bytes(group);
+  while (group > 1 && TL::smem_bytes(group, kRecur) > (size_t)optin) --group;
+  const size_t bytes = TL::smem_bytes(group, kRecur);
   if (bytes > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(degridder_sep_v4_kernel<N>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  auto* kernel = &degridder_sep_v4_kernel<N>;
+  if constexpr (kRecur) kernel = &degridder_sep_v5_kernel<N>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  degridder_sep_v4_kernel<N><<<S, TL::kThreads, bytes, stream>>>(
+  kernel<<<S, TL::kThreads, bytes, stream>>>(
       uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
       subgrids, out, T, C, nr_stations, w_rank, group);
   return cudaGetLastError();
@@ -402,22 +482,24 @@ cudaError_t launch(const float* uvw, const float* mu, const float* k, const floa
 
 namespace idg {
 
-cudaError_t degridder_sep_v4(const float* uvw, const float* mu, const float* k,
-                             const float* po_x, const float* po_y, const float* l,
-                             const float* m, const float* n, const float* sph,
-                             const float2* aterms, const int* aterm_index,
-                             const int* station1, const int* station2,
-                             const float2* subgrids, float2* out, int S, int T, int C, int N,
-                             int nr_stations, int w_rank, cudaStream_t stream) {
+// cuda_v4, or cuda_v5 with `recurrence`.
+cudaError_t degridder_sep_bf16(const float* uvw, const float* mu, const float* k,
+                               const float* po_x, const float* po_y, const float* l,
+                               const float* m, const float* n, const float* sph,
+                               const float2* aterms, const int* aterm_index,
+                               const int* station1, const int* station2,
+                               const float2* subgrids, float2* out, int S, int T, int C, int N,
+                               int nr_stations, int w_rank, bool recurrence,
+                               cudaStream_t stream) {
+#define IDG_ARGS                                                                           \
+  uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2, subgrids, \
+      out, S, T, C, nr_stations, w_rank, stream
   switch (N) {
-    case 16: return launch<16>(uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                               station1, station2, subgrids, out, S, T, C, nr_stations,
-                               w_rank, stream);
-    case 32: return launch<32>(uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                               station1, station2, subgrids, out, S, T, C, nr_stations,
-                               w_rank, stream);
+    case 16: return recurrence ? launch<16, true>(IDG_ARGS) : launch<16, false>(IDG_ARGS);
+    case 32: return recurrence ? launch<32, true>(IDG_ARGS) : launch<32, false>(IDG_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef IDG_ARGS
 }
 
 }  // namespace idg

@@ -184,13 +184,13 @@ __global__ void __launch_bounds__(kThreads, 2) gridder_direct_kernel(
             pi[e] = phase_index(u, v, w, geo[e].x, geo[e].y, geo[e].z);
             // the step's error compounds over the group: the FMA-pipe phasor
             if constexpr (kRecur) d[e] = expi_poly(-(pi[e] * dk));
-            if constexpr (!kPhasors) ph[e] = expi_reduced_unit(__fsub_rn(geo[e].w, __fmul_rn(pi[e], s_k[ca])));
+            if constexpr (!kPhasors) ph[e] = expi_reduced_unit(__fmaf_rn(-pi[e], s_k[ca], geo[e].w));
           }
           for (int c0 = 0; c0 < nc; c0 += kChanGroup) {
             if constexpr (kRecur && kPhasors) {
               // an exact phasor at each group's first channel: no drift
 #pragma unroll
-              for (int e = 0; e < kPh; ++e) ph[e] = expi_reduced_unit(__fsub_rn(geo[e].w, __fmul_rn(pi[e], s_k[ca + c0])));
+              for (int e = 0; e < kPh; ++e) ph[e] = expi_reduced_unit(__fmaf_rn(-pi[e], s_k[ca + c0], geo[e].w));
             }
             const int c1 = min(c0 + kChanGroup, nc);
             for (int cf = c0; cf < c1; cf += kFold) {
@@ -204,7 +204,7 @@ __global__ void __launch_bounds__(kThreads, 2) gridder_direct_kernel(
                 if constexpr (!kRecur && kPhasors) {
                   const float kc = s_k[ca + c];
 #pragma unroll
-                  for (int e = 0; e < kPh; ++e) ph[e] = expi_reduced_unit(__fsub_rn(geo[e].w, __fmul_rn(pi[e], kc)));
+                  for (int e = 0; e < kPh; ++e) ph[e] = expi_reduced_unit(__fmaf_rn(-pi[e], kc, geo[e].w));
                 }
                 float a_hi[kGroup][4], a_lo[kGroup][4];
 #pragma unroll

@@ -1,9 +1,12 @@
-// K8b, gridder cuda_v4: visibilities -> subgrids c64[S, P, N, N], the
-// separable product in split bf16 on the tensor cores (`wgmma`).
+// K8b and K8c, gridder cuda_v4 and cuda_v5: visibilities -> subgrids
+// c64[S, P, N, N], the separable product in split bf16 on the tensor cores
+// (`wgmma`); cuda_v5 (kRecur) makes Φ by the channel recurrence.
 //
 // Replaces idg_tpu/ops/pallas/gridder.py:_kernel_separable (launcher
 // _gridder_separable_run, gridder.py:525, registered as pallas_v4 with
-// gridder_precisions). Per subgrid and Taylor rank r, as the plain version
+// gridder_precisions) and :_kernel_sep_recur (launcher
+// _gridder_sep_recur_run, gridder.py:708, pallas_v5). Per subgrid and
+// Taylor rank r, as the plain version
 // (ops/cuda/gridder_separable.py:gridder_separable_plain) takes it:
 //   pix_r[y, (p,x)] = Σ_v Φy[v,y] · W_r[v,(p,x)],  W_r = Φx[v,x] · (vis[v,p] · (iμ_v)^r / r!)
 //   Φx[v,x] = e^{i(po_x[x] − l[x]·u_t·k_c)},  Φy[v,y] = e^{i(po_y[y] − m[y]·v_t·k_c)}
@@ -12,15 +15,22 @@
 // lo = bf16(x − hi) (round to nearest even, separable.cuh:split_bf16), with
 // the Taylor coefficient on W (gridder.py:466-477); "3x" = lo·hi + hi·lo +
 // hi·hi for rank 0 and for every rank of an escalated rank, hi·hi alone for
-// rank 1 at rank ≤ 2 (ops/precision.py:rank_precisions).
+// rank 1 at rank ≤ 2 (ops/precision.py:rank_precisions). cuda_v4 takes an
+// exact sincosf for every entry of Φ; cuda_v5 the channel recurrence
+// (separable.cuh:phasor<true>): the channel-0 plane, then one complex
+// multiply a channel by the Δk plane, with an exact restart from k0 + c·Δk
+// at every c % 16 == 0, c > 0 (uniform channel spacing assumed; the guard
+// falls back to cuda_v4).
 //
 // What bounds it on an H100: the products are 4 bf16 passes × 67.1 MFLOP ×
 // 24,500 subgrids = 6.6e12 FLOP at the default problem, 6.65 ms at 989
-// TFLOP/s; around them, on the CUDA cores, 131,072 exact sincosf a subgrid
-// and W_r of every rank (one complex multiply and a split an entry,
-// 262,144 entries a subgrid at rank 2). The parent kernel (bf16 mma.sync)
-// took 63 ms: every fragment came from a 32-bit shared-memory load, and
-// the formation and the products ran on the same warps between barriers.
+// TFLOP/s; around them, on the CUDA cores, Φ (cuda_v4: 131,072 exact
+// sincosf a subgrid; cuda_v5: one complex multiply an entry, a sincosf at
+// the restarts) and W_r of every rank (one complex multiply and a split an
+// entry, 262,144 entries a subgrid at rank 2). The parent kernels (bf16
+// mma.sync) took 63 ms (v4) and 60 ms (v5): every fragment came from a
+// 32-bit shared-memory load, and the formation and the products ran on the
+// same warps between barriers; v5 also walked the recurrence once a rank.
 //
 // Design (the gridder K1's, csrc/gridder.cu, in bf16 with the coefficient
 // moved onto W):
@@ -37,22 +47,32 @@
 //    and is folded, weighted by n^r, into a running complex sum per output
 //    in round-to-nearest FMAs: the tensor cores' accumulation truncates,
 //    and a running sum over V on them missed the 1e-5 gate (3.2e-5 at V = 768).
+//  - Tiles: cuda_v4 takes 32 consecutive visibilities v = t·C + c; cuda_v5
+//    32 timesteps of one channel (v = c·T + t, as JAX's kernel orders
+//    them), the t-tiles outer and the channels inner, so that a producer's
+//    recurrence carries from one channel to the next (separable.cuh:
+//    tile_span).
 //  - Warp specialization: the consumer warpgroups issue the products and
 //    fold them; 8N producer threads form the next tile (768 threads at
 //    N = 32, 384 at N = 16). A producer owns one x, one y and 4 visibilities:
-//    two exact sincosf each (no fast math), Φy's split and, for every rank,
-//    W_r's split, stored 8 bytes at a time with the lanes of a warp on 16
-//    rows × both halves of a 16-byte chunk (no bank conflicts). vis·(iμ)^r/r!
-//    is formed once a visibility, pol and rank into a small table first,
-//    behind a named barrier of the producers alone. The roles come through
-//    a warp shuffle and the ragged tile is masked by selects: ptxas
-//    serializes wgmma around a divergent path (C7520). One barrier a tile
-//    hands the two stages over; the visibilities and μ arrive by cp.async
-//    a tile ahead of the formation.
+//    Φx and Φy there (cuda_v4: two exact sincosf each, no fast math;
+//    cuda_v5: the recurrence, the state cur and step of its 8 entries in
+//    shared memory, separable.cuh:phasors_shared: in registers they
+//    spilled), Φy's split and, for every rank, W_r's split, stored 8 bytes
+//    at a time with the lanes of a warp on 16 rows × both halves of a
+//    16-byte chunk (no bank conflicts). vis·(iμ)^r/r! is formed once a
+//    visibility, pol and rank into a small table first, behind a named
+//    barrier of the producers alone. The roles come through a warp shuffle
+//    and the ragged tile is masked by selects: ptxas serializes wgmma around
+//    a divergent path (C7520); the recurrence's three cases branch on the
+//    channel, the same for the whole block. One barrier a tile hands the two
+//    stages over; the visibilities and μ arrive by cp.async a tile ahead of
+//    the formation (cuda_v5: 32 bytes a timestep, strided by C·P).
 //  - Shared memory: a stage is Φy (hi, lo) and W_r (hi, lo) of each rank of
-//    a group, 40 KB a rank at N = 32. Two stages take up to three ranks;
-//    above that the ranks go in groups that fit, each walking every tile
-//    again (forming Φ again) and folding into the same running sums.
+//    a group, 40 KB a rank at N = 32. Two stages take up to three ranks
+//    (two beside cuda_v5's 32 KB of recurrence state); above that the ranks
+//    go in groups that fit, each walking every tile again (forming Φ again,
+//    cuda_v5 from channel 0) and folding into the same running sums.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,9 +110,12 @@ struct Tile {
   __host__ __device__ static constexpr size_t stage_bytes(int group) {
     return 2 * kBytesL + 2 * (size_t)group * kBytesW;
   }
-  // two stages, the vis·c_r table, the two raw slots
-  __host__ __device__ static constexpr size_t smem_bytes(int group) {
-    return 2 * stage_bytes(group) + group * kBytesVc + 2 * (size_t)kRawBytes;
+  // cuda_v5's recurrence state: (cur, step) of a producer's 8 entries
+  static constexpr size_t kBytesState = (size_t)8 * kProducers * sizeof(float4);
+  // two stages, the vis·c_r table, the two raw slots, the recurrence state
+  __host__ __device__ static constexpr size_t smem_bytes(int group, bool recur) {
+    return 2 * stage_bytes(group) + group * kBytesVc + 2 * (size_t)kRawBytes +
+           (recur ? kBytesState : 0);
   }
   static_assert(kPols * N * N * sizeof(float2) <= 2 * kBytesL + 2 * kBytesW,
                 "the epilogue's pixels fit a stage");
@@ -119,8 +142,10 @@ __device__ __forceinline__ void mma_rank(const unsigned char* stage, int slab, i
   }
 }
 
-template <int N>
-__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridder_sep_v4_kernel(
+// The kernel of both rungs (cuda_v5 with kRecur); each rung's __global__
+// below calls it.
+template <int N, bool kRecur>
+__device__ __forceinline__ void gridder_sep(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float2* __restrict__ vis,         // [S, T, C, P]
     const float* __restrict__ mu,           // [S, T, C]
@@ -143,16 +168,18 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   constexpr int kCons = TL::kConsumers;
   constexpr int kProd = TL::kProducers;
 
-  // [stage 0][stage 1][vis·c_r: group × [kKT][P]][raw 0][raw 1]
+  // [stage 0][stage 1][vis·c_r: group × [kKT][P]][raw 0][raw 1][state: [8][kProd]]
   extern __shared__ __align__(128) unsigned char smem[];
   const size_t stage_bytes = TL::stage_bytes(group);
   float2* vc = reinterpret_cast<float2*>(smem + 2 * stage_bytes);
   unsigned char* raw = smem + 2 * stage_bytes + group * TL::kBytesVc;
+  float4* state = reinterpret_cast<float4*>(raw + 2 * kRawBytes);
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
   const int V = T * C;
-  const int nt = (V + kKT - 1) / kKT;
+  const int nt = kRecur ? (T + kKT - 1) / kKT * C : (V + kKT - 1) / kKT;
+  const float dk = C > 1 ? k[1] - k[0] : 0.0f;   // the recurrence's channel step
   const float* uvw_s = uvw + (size_t)s * T * 3;
   const float2* vis_s = vis + (size_t)s * V * kPols;
   const float* mu_s = mu + (size_t)s * V;
@@ -175,26 +202,29 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   }
 
   auto stage_raw = [&](int tile, int slot) {
-    const int v0 = tile * kKT, nv = min(kKT, V - v0);
+    const TileSpan sp = tile_span<kRecur, kKT>(tile, T, C);
     unsigned char* dst = raw + slot * kRawBytes;
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(vis_s + (size_t)v0 * kPols);
-    for (int e = ptid; e < nv * 2; e += kProd) cp_async16(dst + e * 16, src + e * 16);
+    for (int e = ptid; e < sp.nv * 2; e += kProd) {
+      const float2* src = vis_s + (size_t)(sp.base + (e >> 1) * sp.stride) * kPols + (e & 1) * 2;
+      cp_async16(dst + e * 16, src);
+    }
     float* dmu = reinterpret_cast<float*>(dst + kKT * kPols * sizeof(float2));
-    for (int e = ptid; e < nv; e += kProd) cp_async4(dmu + e, mu_s + v0 + e);
+    for (int e = ptid; e < sp.nv; e += kProd) cp_async4(dmu + e, mu_s + sp.base + e * sp.stride);
     cp_async_commit();
   };
 
   // The producers' share of a tile for ranks [r0, r0 + nr): first
   // vis·(iμ)^r/r! of every visibility, pol and rank into the vc table (0
-  // past V, by selects), then, behind the producers' barrier, each
-  // producer's Φx and Φy at its 4 visibilities, Φy's split and W_r's.
+  // past the tile's visibilities, by selects), then, behind the producers'
+  // barrier, each producer's Φx and Φy at its 4 visibilities, Φy's split
+  // and W_r's. cuda_v5 must form the tiles in order, from tile 0.
   auto form = [&](int tile, int slot, int buf, int r0, int nr) {
-    const int v0 = tile * kKT, nv = min(kKT, V - v0);
+    const int nv = tile_span<kRecur, kKT>(tile, T, C).nv;
     const float2* rvis = reinterpret_cast<const float2*>(raw + slot * kRawBytes);
     const float* rmu = reinterpret_cast<const float*>(rvis + kKT * kPols);
     for (int e = ptid; e < nr * kKT * kPols; e += kProd) {
       const int i = e / (kKT * kPols), kk = (e / kPols) % kKT;
-      const float2 c = taylor_coefficient<false>(rmu[kk], r0 + i);
+      const float2 c = taylor_coefficient(rmu[kk], r0 + i);
       const float2 w = cmul(rvis[e % (kKT * kPols)], c);
       vc[e] = kk < nv ? w : make_float2(0.0f, 0.0f);
     }
@@ -203,21 +233,44 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     unsigned char* st = smem + buf * stage_bytes;
     float2 phx[4];
     float py_re[4], py_im[4];
-    int t = (v0 + kv) / C, c = v0 + kv - t * C;
+    if constexpr (kRecur) {
+      // timesteps t0 + i of channel c: Φx[a, t0 + i] is entry i, Φy[a, t0 +
+      // i] entry 4 + i. The ragged tile's dead entries step too, on the last
+      // timestep's coordinates, and stay unmasked (no registers beside the
+      // state): their W is 0 by the vc table, and their Φy is finite.
+      const int c = tile % C, t0 = (tile / C) * kKT + kv;
+      float2 e[8];
+      phasors_shared<8>(
+          [&](int i, float& po, float& ax, float& coord) {
+            po = i < 4 ? pox : poy;
+            ax = i < 4 ? lx : my;
+            coord = __ldg(uvw_s + min(t0 + (i & 3), T - 1) * 3 + (i >> 2));
+          },
+          k, c, dk, state + ptid, kProd, e);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool live = kv + i < nv;
-      const float* uvw_t = uvw_s + min(t, T - 1) * 3;
-      const float kc = __ldg(k + c);
-      float sn, cs;
-      sincosf(pox - lx * (__ldg(uvw_t) * kc), &sn, &cs);
-      phx[i] = live ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
-      sincosf(poy - my * (__ldg(uvw_t + 1) * kc), &sn, &cs);
-      py_re[i] = live ? cs : 0.0f;
-      py_im[i] = live ? sn : 0.0f;
-      const bool wrap = ++c == C;
-      c = wrap ? 0 : c;
-      t += wrap;
+      for (int i = 0; i < 4; ++i) {
+        phx[i] = e[i];
+        py_re[i] = e[4 + i].x;
+        py_im[i] = e[4 + i].y;
+      }
+    } else {
+      const int v0 = tile * kKT;
+      int t = (v0 + kv) / C, c = v0 + kv - t * C;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool live = kv + i < nv;
+        const float* uvw_t = uvw_s + min(t, T - 1) * 3;
+        const float kc = __ldg(k + c);
+        float sn, cs;
+        sincosf(pox - lx * (__ldg(uvw_t) * kc), &sn, &cs);
+        phx[i] = live ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
+        sincosf(poy - my * (__ldg(uvw_t + 1) * kc), &sn, &cs);
+        py_re[i] = live ? cs : 0.0f;
+        py_im[i] = live ? sn : 0.0f;
+        const bool wrap = ++c == C;
+        c = wrap ? 0 : c;
+        t += wrap;
+      }
     }
     uint2 hi, lo;
     __nv_bfloat16* l_hi = reinterpret_cast<__nv_bfloat16*>(st);
@@ -338,7 +391,36 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   }
 }
 
+#define IDG_GRIDDER_SEP_PARAMS                                                             \
+  const float* __restrict__ uvw, const float2* __restrict__ vis, const float* __restrict__ mu, \
+      const float* __restrict__ k, const float* __restrict__ po_x,                         \
+      const float* __restrict__ po_y, const float* __restrict__ l,                         \
+      const float* __restrict__ m, const float* __restrict__ n,                            \
+      const float* __restrict__ sph, const float2* __restrict__ aterms,                    \
+      const int* __restrict__ aterm_index, const int* __restrict__ station1,               \
+      const int* __restrict__ station2, float2* __restrict__ out, int T, int C,            \
+      int nr_stations, int w_rank, int group
+#define IDG_GRIDDER_SEP_ARGS                                                               \
+  uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2, out, T, \
+      C, nr_stations, w_rank, group
+
+// One __global__ a rung, so that ptxas's report and the SASS name them apart.
 template <int N>
+__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks)
+    gridder_sep_v4_kernel(IDG_GRIDDER_SEP_PARAMS) {
+  gridder_sep<N, false>(IDG_GRIDDER_SEP_ARGS);
+}
+
+template <int N>
+__global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks)
+    gridder_sep_v5_kernel(IDG_GRIDDER_SEP_PARAMS) {
+  gridder_sep<N, true>(IDG_GRIDDER_SEP_ARGS);
+}
+
+#undef IDG_GRIDDER_SEP_PARAMS
+#undef IDG_GRIDDER_SEP_ARGS
+
+template <int N, bool kRecur>
 cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const float* k,
                    const float* po_x, const float* po_y, const float* l, const float* m,
                    const float* n, const float* sph, const float2* aterms,
@@ -352,15 +434,17 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return err;
-  // as many ranks a group as two stages hold (every rank up to 3 at N = 32)
+  // as many ranks a group as two stages hold (every rank up to 3 at N = 32,
+  // up to 2 beside cuda_v5's recurrence state)
   int group = w_rank;
-  while (group > 1 && TL::smem_bytes(group) > (size_t)optin) --group;
-  const size_t bytes = TL::smem_bytes(group);
+  while (group > 1 && TL::smem_bytes(group, kRecur) > (size_t)optin) --group;
+  const size_t bytes = TL::smem_bytes(group, kRecur);
   if (bytes > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(gridder_sep_v4_kernel<N>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  auto* kernel = &gridder_sep_v4_kernel<N>;
+  if constexpr (kRecur) kernel = &gridder_sep_v5_kernel<N>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  gridder_sep_v4_kernel<N><<<S, TL::kThreads, bytes, stream>>>(
+  kernel<<<S, TL::kThreads, bytes, stream>>>(
       uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
       out, T, C, nr_stations, w_rank, group);
   return cudaGetLastError();
@@ -370,19 +454,23 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
 
 namespace idg {
 
-cudaError_t gridder_sep_v4(const float* uvw, const float2* vis, const float* mu,
-                           const float* k, const float* po_x, const float* po_y,
-                           const float* l, const float* m, const float* n, const float* sph,
-                           const float2* aterms, const int* aterm_index, const int* station1,
-                           const int* station2, float2* out, int S, int T, int C, int N,
-                           int nr_stations, int w_rank, cudaStream_t stream) {
+// cuda_v4, or cuda_v5 with `recurrence`.
+cudaError_t gridder_sep_bf16(const float* uvw, const float2* vis, const float* mu,
+                             const float* k, const float* po_x, const float* po_y,
+                             const float* l, const float* m, const float* n, const float* sph,
+                             const float2* aterms, const int* aterm_index, const int* station1,
+                             const int* station2, float2* out, int S, int T, int C, int N,
+                             int nr_stations, int w_rank, bool recurrence,
+                             cudaStream_t stream) {
+#define IDG_ARGS                                                                            \
+  uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2, out, S, \
+      T, C, nr_stations, w_rank, stream
   switch (N) {
-    case 16: return launch<16>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                               station1, station2, out, S, T, C, nr_stations, w_rank, stream);
-    case 32: return launch<32>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                               station1, station2, out, S, T, C, nr_stations, w_rank, stream);
+    case 16: return recurrence ? launch<16, true>(IDG_ARGS) : launch<16, false>(IDG_ARGS);
+    case 32: return recurrence ? launch<32, true>(IDG_ARGS) : launch<32, false>(IDG_ARGS);
     default: return cudaErrorInvalidValue;
   }
+#undef IDG_ARGS
 }
 
 }  // namespace idg

@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, 2) gridder_sep_v3_kernel(
     const float* rmu = reinterpret_cast<const float*>(rvis + kTile * kPols);
     for (int e = tid; e < nr * kTile * kPols; e += kThreads) {
       const int kk = (e / kPols) % kTile;
-      const float2 c = taylor_coefficient<false>(rmu[kk], r0 + e / (kTile * kPols));
+      const float2 c = taylor_coefficient(rmu[kk], r0 + e / (kTile * kPols));
       const float2 w = cmul(rvis[e % (kTile * kPols)], c);
       s_vc[e] = kk < nv ? w : make_float2(0.0f, 0.0f);
     }

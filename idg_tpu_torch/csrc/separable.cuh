@@ -1,8 +1,8 @@
-// Helpers of the separable kernels (gridder_separable.cu,
-// degridder_separable.cu, degridder_polstack.cu and the rungs' *_sep_*.cu):
-// the bf16 hi/lo split of a float32 value, a 32-bit shared-memory load of
-// two bf16 values, one bf16 mma.sync into float32 accumulators, the Taylor
-// terms of the w correction and the phasors with their channel recurrence.
+// Helpers of the separable kernels (degridder_polstack.cu and the rungs'
+// *_sep_*.cu): the bf16 hi/lo split of a float32 value, one bf16 mma.sync
+// into float32 accumulators, the Taylor terms of the w correction, the
+// phasors with their channel recurrence and the visibility tiles of the
+// bf16 rungs.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,12 +23,6 @@ __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi, __nv_bflo
   lo = __float2bfloat16_rn(x - __bfloat162float(hi));
 }
 
-// Two consecutive bf16 values as one fragment register (the lower address in
-// the lower half).
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Flips the sign of both bf16 halves of a fragment register: exact.
 constexpr uint32_t kNegPair = 0x80008000u;
 
@@ -47,14 +41,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// (iμ)^r / r!, or its conjugate, by r steps of ·(±iμ/q) in the operation
-// order of the TPU kernels (gridder.py:469, degridder.py:274).
-template <bool kConj>
+// (iμ)^r / r! by r steps of ·(iμ/q) in the operation order of the TPU
+// kernels (gridder.py:469).
 __device__ __forceinline__ float2 taylor_coefficient(float mu, int r) {
   float cr = 1.0f, ci = 0.0f;
   for (int q = 1; q <= r; ++q) {
-    const float ncr = kConj ? ci * mu / q : -ci * mu / q;
-    ci = kConj ? -cr * mu / q : cr * mu / q;
+    const float ncr = -ci * mu / q;
+    ci = cr * mu / q;
     cr = ncr;
   }
   return make_float2(cr, ci);
@@ -92,6 +85,61 @@ __device__ __forceinline__ float2 phasor(float po, float ax, float coord, const 
       cur = cmul(cur, step);
     }
     return cur;
+  }
+}
+
+// The channel recurrence of the kE entries of one producer of the bf16
+// rungs at channel c, e[i] = entry i's phasor, with each entry's state
+// (cur, step) in shared memory at state[i·stride]: 8 entries' state in
+// registers spilled beside the formation's own (80 registers a thread at
+// 768 threads a block). Where the recurrence restarts (c % kResync == 0,
+// c == 0 too) each entry takes phasor<true>, with its phase offset, axis
+// value and coordinate from geo(i, po, ax, coord); at any other channel
+// every entry takes phasor<true>'s step, one complex multiply, in a branch
+// of its own with no other path, so that the state reads are all issued
+// before the first multiply.
+template <int kE, typename Geo>
+__device__ __forceinline__ void phasors_shared(Geo geo, const float* k, int c, float dk,
+                                               float4* state, int stride, float2 (&e)[kE]) {
+  if (c % kResync == 0) {
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      const float4 st = state[i * stride];   // not used at c == 0
+      float po, ax, coord;
+      geo(i, po, ax, coord);
+      float2 cur = make_float2(st.x, st.y), step = make_float2(st.z, st.w);
+      e[i] = phasor<true>(po, ax, coord, k, c, dk, cur, step);
+      state[i * stride] = make_float4(cur.x, cur.y, step.x, step.y);
+    }
+  } else {
+    float4 st[kE];
+#pragma unroll
+    for (int i = 0; i < kE; ++i) st[i] = state[i * stride];
+#pragma unroll
+    for (int i = 0; i < kE; ++i) {
+      e[i] = cmul(make_float2(st[i].x, st[i].y), make_float2(st[i].z, st[i].w));
+      reinterpret_cast<float2*>(state + i * stride)[0] = e[i];
+    }
+  }
+}
+
+// The visibilities of tile j of the bf16 rungs (*_sep_bf16.cu): the kk-th,
+// kk < nv, sits at base + kk·stride of the [T, C] layout. cuda_v4 takes
+// kTile consecutive v = t·C + c; cuda_v5 (kRecur) kTile timesteps of one
+// channel, c-major as JAX's pallas_v5 orders them, with the t-tiles outer
+// and the channels inner (j = t-tile·C + c), so that the recurrence's state
+// carries from one channel to the next.
+struct TileSpan {
+  int base, stride, nv;
+};
+
+template <bool kRecur, int kTile>
+__device__ __forceinline__ TileSpan tile_span(int j, int T, int C) {
+  if constexpr (kRecur) {
+    const int t0 = (j / C) * kTile;
+    return {t0 * C + j % C, C, min(kTile, T - t0)};
+  } else {
+    return {j * kTile, 1, min(kTile, T * C - j * kTile)};
   }
 }
 

@@ -36,7 +36,7 @@ from .gridder import (
     full_fp32_matmuls,
     ptr,
 )
-from .gridder_direct import channel_step, direct_geometry, expi
+from .gridder_direct import channel_step, direct_geometry, expi, gridder_phase
 
 CHANNEL_GROUP = 8   # channels per thread in K9a (kChanGroup in csrc/degridder_direct.cu)
 
@@ -64,13 +64,13 @@ def degridder_direct_plain(params: IDGParams, stg: Staged, subgrids: torch.Tenso
             d = expi(pi * channel_step(k))
             for c0 in range(0, C, CHANNEL_GROUP):
                 c1 = min(c0 + CHANNEL_GROUP, C)
-                ph = expi(pi * k[c0] - po)
+                ph = expi(-gridder_phase(pi, k[c0], po))
                 for c in range(c0, c1):
                     out[lo:hi, :, c] = torch.einsum("stq,sqp->stp", ph, pix)
                     if c + 1 < c1:
                         ph = ph * d
         else:
-            ph = expi(pi[:, :, None] * k[:, None] - po[:, :, None])  # [s,T,C,NN]
+            ph = expi(-gridder_phase(pi[:, :, None], k[:, None], po[:, :, None]))  # [s,T,C,NN]
             out[lo:hi] = torch.einsum("stcq,sqp->stcp", ph, pix)
     return out
 

@@ -1,7 +1,8 @@
 """Degridder `cuda_v3` / `cuda_v4` / `cuda_v5`: the separable-phasor kernels
 K9b (cuda_v3: csrc/degridder_sep_fp32.cu, cuda_v4: csrc/degridder_sep_bf16.cu)
-and K9c (cuda_v5: csrc/degridder_separable.cu, which holds the entry point
-of all three) and their plain PyTorch version.
+and K9c (cuda_v5: the recurrence instance of cuda_v4's kernel in
+csrc/degridder_sep_bf16.cu), entered through csrc/degridder_separable.cu,
+and their plain PyTorch version.
 
 The adjoint of ops/cuda/gridder_separable.py (the math of
 idg_tpu/ops/pallas/degridder.py:_kernel_separable):
@@ -10,9 +11,10 @@ idg_tpu/ops/pallas/degridder.py:_kernel_separable):
   vis[v,p] = Σ_r conj((iμ_v)^r / r!) · Σ_x D_r[v,(p,x)] · conj(Φx[v,x])  (stage 2)
 Stage 1 runs in the rung's precision mode (ops/precision.py); stage 2 in
 float32. The rungs are those of the gridder: cuda_v3 float32 FFMA, cuda_v4
-the split bf16 policy on the tensor cores (`wgmma`), cuda_v5 the same policy
-on `mma.sync` with Φ by the channel recurrence (uniform channel spacing
-assumed; the guard falls back to cuda_v4). Both write [S, T, C, P]: v5's c-major order is a loop order.
+the split bf16 policy on the tensor cores (`wgmma`, producer warps),
+cuda_v5 the same kernel with Φ by the channel recurrence in its producers
+(uniform channel spacing assumed; the guard falls back to cuda_v4). All
+write [S, T, C, P]: v5's c-major order is a loop order.
 
 Each wrapper dispatches on the staging's device: a CPU staging runs the
 plain version, a CUDA staging launches the kernel (or raises).
@@ -148,8 +150,8 @@ def degridder_cuda_v4(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
 
 @register(
     "degridder", "cuda_v5",
-    "v4's policy on bf16 mma.sync + channel-recurrence phasor generation "
-    "(exact resync every 16 channels), c-major; counterpart of pallas_v5",
+    "v4's bf16 wgmma kernel with the channel-recurrence phasors in its producer "
+    "warps (exact resync every 16 channels), c-major; counterpart of pallas_v5",
     family="cuda", uniform_channels=True, fallback="cuda_v4",
 )
 def degridder_cuda_v5(params: IDGParams, stg: Staged, subgrids: torch.Tensor,

@@ -52,17 +52,34 @@ def channel_step(k: torch.Tensor) -> torch.Tensor:
     return k[1] - k[0] if k.shape[0] > 1 else torch.zeros((), dtype=k.dtype, device=k.device)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a·b + c in float32 with one rounding, as a fused multiply-add: the
+    product of two float32 values is exact in float64, so the float64 sum
+    rounded to float32 is the FMA's result (but for a double rounding at a
+    tie)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def direct_geometry(stg: Staged, lo: int, hi: int):
     """The phase index pi[s, t, y·N+x] = u·l_x + v·m_y + w·n_yx and the phase
     offset po[s, 1, y·N+x] = po_x + po_y + w_off·n for subgrids [lo, hi), f32,
-    in the operation order of idg_tpu/ops/pallas/gridder.py:_gridder_direct."""
+    with the roundings of idg_tpu/ops/pallas/gridder.py:_gridder_direct and
+    _kernel_direct as XLA compiles them: pi = fma(w, n, fma(u, l, v·m)),
+    po = fma(w_off, n, po_x + po_y). The phase is one more FMA,
+    `gridder_phase` (the degridder's is its negation)."""
     s = hi - lo
     uvw = stg.uvw[lo:hi]
     u, v, w = (uvw[:, :, i, None, None] for i in range(3))
-    pi = u * stg.l + v * stg.m[:, None] + w * stg.n
-    po = (stg.po_x[lo:hi, None, :] + stg.po_y[lo:hi, :, None]
-          + stg.w_off[lo:hi, None, None] * stg.n)
+    pi = fma32(w, stg.n, fma32(u, stg.l, v * stg.m[:, None]))
+    po = fma32(stg.w_off[lo:hi, None, None], stg.n,
+               stg.po_x[lo:hi, None, :] + stg.po_y[lo:hi, :, None])
     return pi.reshape(s, uvw.shape[1], -1), po.reshape(s, 1, -1)
+
+
+def gridder_phase(pi: torch.Tensor, k: torch.Tensor, po: torch.Tensor) -> torch.Tensor:
+    """The gridder's float32 phase po − pi·k as XLA fuses it, fma(−pi, k, po);
+    the degridder's pi·k − po = fma(pi, k, −po) is its exact negation."""
+    return fma32(-pi, k, po)
 
 
 def gridder_direct_plain(params: IDGParams, stg: Staged, recurrence: bool):
@@ -86,13 +103,13 @@ def gridder_direct_plain(params: IDGParams, stg: Staged, recurrence: bool):
             pix = 0
             for c0 in range(0, C, CHANNEL_GROUP):
                 c1 = min(c0 + CHANNEL_GROUP, C)
-                ph = expi(po - pi * k[c0])
+                ph = expi(gridder_phase(pi, k[c0], po))
                 for c in range(c0, c1):
                     pix = pix + torch.einsum("stp,stq->sqp", vis[:, :, c], ph)
                     if c + 1 < c1:
                         ph = ph * d
         else:
-            ph = expi(po[:, :, None] - pi[:, :, None] * k[:, None])  # [s,T,C,NN]
+            ph = expi(gridder_phase(pi[:, :, None], k[:, None], po[:, :, None]))  # [s,T,C,NN]
             pix = torch.einsum("stcp,stcq->sqp", vis, ph)
         a1, a2 = _station_jones(stg, lo, hi)
         pix = jones_gridder(pix.reshape(hi - lo, N, N, P), a1, a2) * stg.sph[None, :, :, None]

@@ -1,7 +1,8 @@
 """Gridder `cuda_v3` / `cuda_v4` / `cuda_v5`: the separable-phasor kernels
 K8b (cuda_v3: csrc/gridder_sep_fp32.cu, cuda_v4: csrc/gridder_sep_bf16.cu)
-and K8c (cuda_v5: csrc/gridder_separable.cu, which holds the entry point of
-all three) and their plain PyTorch version.
+and K8c (cuda_v5: the recurrence instance of cuda_v4's kernel in
+csrc/gridder_sep_bf16.cu), entered through csrc/gridder_separable.cu, and
+their plain PyTorch version.
 
 Per subgrid and Taylor rank r the gridder is one complex matrix product,
   pix_r[y, (p,x)] = Σ_v Φy[v,y] · W_r[v,(p,x)],   W_r = Φx[v,x] · vis[v,p] · (iμ_v)^r / r!
@@ -14,8 +15,8 @@ the product is taken and how Φ is made:
   cuda_v4  the precision policy of ops/precision.py:gridder_precisions
            (bf16_3x for the signal, one bf16 pass for the rank-1
            correction at rank ≤ 2) on the tensor cores (`wgmma`); exact Φ
-  cuda_v5  cuda_v4's policy on the tensor cores (`mma.sync`), with Φ made
-           by the channel recurrence: the channel-0
+  cuda_v5  cuda_v4's kernel and policy (`wgmma`, producer warps), with Φ
+           made in the producers by the channel recurrence: the channel-0
            plane and one complex multiply per channel by the Δk plane, with
            an exact resync from k0 + c·Δk at every c % 16 == 0, c > 0. It
            assumes uniform channel spacing (the guard falls back to cuda_v4).
@@ -205,8 +206,8 @@ def gridder_cuda_v4(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK
 
 @register(
     "gridder", "cuda_v5",
-    "v4's policy on bf16 mma.sync + channel-recurrence phasor generation "
-    "(exact resync every 16 channels), c-major; counterpart of pallas_v5",
+    "v4's bf16 wgmma kernel with the channel-recurrence phasors in its producer "
+    "warps (exact resync every 16 channels), c-major; counterpart of pallas_v5",
     family="cuda", uniform_channels=True, fallback="cuda_v4",
 )
 def gridder_cuda_v5(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):

@@ -11,12 +11,15 @@ cuda_v4 and cuda_v5 of the chosen workloads it prints the kernel's error
 against its plain version on the first 512 subgrids of the default problem
 and its time on the full problem (min over windows of back-to-back
 launches), each line prefixed with TAG, plus the ptxas registers and spills
-of the N = 32 instances. Compare two checkouts in one call, in turns:
-parent, change, change, parent.
+of the N = 32 instances and each rung's mean error against the f64 oracle
+on the correctness problem at w = 0, at rank 4 (w_scale 1000) and on a
+ragged V = 37·7 (the problems of chip_smoke.py's phase 10). Compare two
+checkouts in one call, in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 import sys
 import time
@@ -30,8 +33,11 @@ def main(argv) -> int:
     import torch
 
     from idg_tpu_torch.config import HarnessConfig, IDGParams
-    from idg_tpu_torch.data import initialize_subgrids, make_perf_observation
+    from idg_tpu_torch.data import (initialize_subgrids, make_observation,
+                                    make_perf_observation, make_w_observation)
+    from idg_tpu_torch.models.reference import degridder_reference, gridder_reference
     from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops.api import run_degridder, run_gridder
     from idg_tpu_torch.ops.common import slice_staged, stage
     from idg_tpu_torch.ops.cuda import build
     from idg_tpu_torch.ops.cuda.gridder_separable import plain_precisions
@@ -60,6 +66,26 @@ def main(argv) -> int:
                 rung = "cuda_v5" if recur == "1" else "cuda_v4" if bf16 == "1" else "cuda_v3"
             print(f"{tag} ptxas {workload} {rung} N = 32 |",
                   " | ".join(x.strip() for x in lines[i + 2:i + 4]))
+
+    # against the f64 oracle: the correctness problem at w = 0, rank 4 and a
+    # ragged V
+    base = IDGParams.correctness_defaults()
+    params_w, obs_w, _ = make_w_observation(base, w_scale=1000.0)
+    params_r = dataclasses.replace(base, nr_timesteps_subgrid=37, nr_channels=7)
+    problems = (("w=0", base, make_observation(base)[0]), ("rank 4", params_w, obs_w),
+                ("V = 37*7", params_r, make_observation(params_r)[0]))
+    for label, p, obs in problems:
+        sb = initialize_subgrids(p.nr_subgrids, p.nr_correlations, p.subgrid_size)
+        oracles = {"gridder": gridder_reference(p, obs),
+                   "degridder": degridder_reference(p, obs, sb)}
+        for version in ("cuda_v3", "cuda_v4", "cuda_v5"):
+            for workload in workloads:
+                if workload == "gridder":
+                    got = run_gridder(p, obs, version, device="cuda")
+                else:
+                    got = run_degridder(p, obs, sb, version, device="cuda")
+                err = check_error(got, oracles[workload], verbose=False).mean_error
+                print(f"{tag} oracle {workload} {version} {label}: {err:.4e}", flush=True)
 
     params = IDGParams.from_env()
     stg = stage(params, make_perf_observation(params), "cuda")

@@ -371,14 +371,15 @@ SEPARABLE = ("v3", "v4", "v5")
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,channels,w_scale", [
     (16, 8, None), (32, 7, None), (16, 8, 45.0), (16, 8, 1000.0), (32, 16, 1000.0),
-    (16, 48, None), (32, 7, "ragged"), (16, 7, "ragged"),
+    (16, 48, None), (32, 48, None), (32, 7, "ragged"), (16, 7, "ragged"),
 ])
 def test_separable_kernels_match_plain_and_oracle(card, n, channels, w_scale):
     """K8b (v3, v4), K8c (v5), K9b (v3, v4) and K9c (v5) against their plain
     versions and the oracle: T = 16 is one ragged tile, 7 and 48 channels a
-    short and a resyncing recurrence, w_scale 45 the rank-2 bf16 pass with
-    μ != 0, w_scale 1000 rank 4 (all passes bf16_3x), and V = 37·7 a ragged
-    last tile of 32 visibilities (v3, v4) and of 32 timesteps (v5)."""
+    short and a resyncing recurrence (restarts at c = 16 and 32, N = 16 and
+    32), w_scale 45 the rank-2 bf16 pass with μ != 0, w_scale 1000 rank 4
+    (all passes bf16_3x), and V = 37·7 a ragged last tile of 32 visibilities
+    (v3, v4) and of 32 timesteps (v5)."""
     if w_scale == "ragged":
         params = IDGParams(subgrid_size=n, nr_channels=channels,
                            **dict(SMALL, nr_timesteps_subgrid=37))
@@ -404,24 +405,25 @@ def test_separable_kernels_match_plain_and_oracle(card, n, channels, w_scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("version", SEPARABLE)
 @pytest.mark.parametrize("n", [16, 32])
 @pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 6])
-def test_separable_v3_v4_match_plain_at_every_rank(card, n, rank):
-    """K8b and K9b (cuda_v3, cuda_v4) against their plain versions at every
-    Taylor rank on w ≠ 0 data: v3 takes the ranks in pairs, v4 in groups
-    that fit shared memory, each group walking the tiles again."""
+def test_separable_kernels_match_plain_at_every_rank(card, version, n, rank):
+    """K8b, K8c, K9b and K9c (cuda_v3, cuda_v4, cuda_v5) against their plain
+    versions at every Taylor rank on w ≠ 0 data: v3 takes the ranks in
+    pairs, v4 and v5 in groups that fit shared memory, each group walking
+    the tiles again (v5's recurrence from channel 0)."""
     params, obs, sub, _ = _inputs(n, 7, 1000.0)
     stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
     sub_cpu, sub_gpu = torch.from_numpy(sub), torch.from_numpy(sub).to(card)
-    for version in ("v3", "v4"):
-        gridder = getattr(kernels, f"gridder_cuda_{version}")
-        degridder = getattr(kernels, f"degridder_cuda_{version}")
-        got = gridder(params, stg_gpu, rank)
-        torch.cuda.synchronize()
-        _gate(got, gridder(params, stg_cpu, rank))
-        got = degridder(params, stg_gpu, sub_gpu, rank)
-        torch.cuda.synchronize()
-        _gate(got, degridder(params, stg_cpu, sub_cpu, rank))
+    gridder = getattr(kernels, f"gridder_cuda_{version}")
+    degridder = getattr(kernels, f"degridder_cuda_{version}")
+    got = gridder(params, stg_gpu, rank)
+    torch.cuda.synchronize()
+    _gate(got, gridder(params, stg_cpu, rank))
+    got = degridder(params, stg_gpu, sub_gpu, rank)
+    torch.cuda.synchronize()
+    _gate(got, degridder(params, stg_cpu, sub_cpu, rank))
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import idg_tpu.config as jcfg
 import idg_tpu.data as jdata
 import idg_tpu.ops.api as japi
 import idg_tpu.ops.registry as jregistry
@@ -40,7 +41,8 @@ from idg_tpu_torch.ops.common import stage
 from idg_tpu_torch.ops.cuda.degridder import jones_degridder
 from idg_tpu_torch.ops.cuda.gridder import _station_jones, jones_gridder
 from idg_tpu_torch.ops.cuda.gridder_direct import (CHANNEL_GROUP, channel_step,
-                                                   direct_geometry, expi)
+                                                   direct_geometry, expi, fma32,
+                                                   gridder_phase)
 from idg_tpu_torch.ops.precision import dot_mixed
 from idg_tpu_torch.ops.registry import get_kernel, list_kernels
 from idg_tpu_torch.types import from_numpy_observation
@@ -127,6 +129,33 @@ def test_gridder_recurrence_holds_the_gate_at_256_channels(small_params):
     oracle = _oracle("gridder", params, obs, sub)
     assert _error(_port_run("gridder", "cuda_v2", params, obs, sub), oracle) <= GATE
     assert _error(japi.run_gridder(params, obs, version="pallas_v2"), oracle) > GATE
+
+
+@pytest.mark.parametrize("problem, jax_version", [("correctness", "pallas_v1"),
+                                                  ("c256", "xla_reference"),
+                                                  ("small_c256", "pallas_v1")])
+def test_gridder_v1_phase_is_as_accurate_as_jax(problem, jax_version):
+    """The plain gridder cuda_v1 forms its float32 phase with the roundings of
+    JAX's direct kernel as XLA compiles it (fused multiply-adds,
+    gridder_direct.py:direct_geometry, gridder_phase), so its error against
+    the oracle is at most 1.08× JAX's on the same inputs: on the correctness
+    problem (N = 32, T = 128, C = 16) against pallas_v1 in interpret mode
+    (2.133e-06 against 2.014e-06 observed), at C = 256, N = 16 against
+    xla_reference (1.258e-05 against 1.401e-05; pallas_v1's interpret trace
+    takes minutes there), and on the card tests' small C = 256 problem (6
+    subgrids) against pallas_v1 (3.575e-06 against 4.136e-06). Rounded one
+    operation at a time, the phase gave 2.317e-06, 1.686e-05 and 3.451e-06."""
+    params = jcfg.IDGParams.correctness_defaults()
+    if problem == "c256":
+        params = dataclasses.replace(params, subgrid_size=16, nr_channels=256)
+    elif problem == "small_c256":
+        params = jcfg.IDGParams(subgrid_size=16, nr_channels=256, grid_size=128,
+                                nr_stations=3, nr_timeslots=2, nr_timesteps_subgrid=16)
+    obs, sub = jdata.make_observation(params, include_subgrids=True)
+    oracle = _oracle("gridder", params, obs, sub)
+    got = _error(_port_run("gridder", "cuda_v1", params, obs, sub), oracle)
+    want = _error(japi.run_gridder(params, obs, version=jax_version), oracle)
+    assert got <= 1.08 * want, (got, want)
 
 
 @pytest.mark.parametrize("workload", ["gridder", "degridder"])
@@ -355,9 +384,9 @@ def _direct_3xtf32(workload, params, stg, sub, recurrence):
         pix = 0
         for c0 in groups:
             chans = range(c0, min(c0 + CHANNEL_GROUP, C)) if recurrence else range(C)
-            ph = expi(po - pi * k[chans[0]]) if recurrence else None
+            ph = expi(gridder_phase(pi, k[chans[0]], po)) if recurrence else None
             for c in chans:
-                ph = ph if recurrence else expi(po - pi * k[c])
+                ph = ph if recurrence else expi(gridder_phase(pi, k[c], po))
                 # Φᵀ [s, NN, T] · vis [s, T, P]
                 pix = pix + _cmatmul_3xtf32(ph.transpose(1, 2), stg.vis[:, :, c])
                 if recurrence:
@@ -369,9 +398,9 @@ def _direct_3xtf32(workload, params, stg, sub, recurrence):
     out = torch.empty((S, T, C, P), dtype=torch.complex64)
     for c0 in groups:
         chans = range(c0, min(c0 + CHANNEL_GROUP, C)) if recurrence else range(C)
-        ph = expi(pi * k[chans[0]] - po) if recurrence else None
+        ph = expi(-gridder_phase(pi, k[chans[0]], po)) if recurrence else None
         for c in chans:
-            ph = ph if recurrence else expi(pi * k[c] - po)
+            ph = ph if recurrence else expi(-gridder_phase(pi, k[c], po))
             out[:, :, c] = _cmatmul_3xtf32(ph, pix)                # [s,T,NN] · [s,NN,P]
             if recurrence:
                 ph = ph * step
@@ -417,12 +446,13 @@ def _kernel_constants():
 
 
 def _fma32(a, b, c):
-    """fmaf in float32: the product and sum exact in float64, one rounding."""
-    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+    """fmaf in float32 on numpy values, by the port's own emulation
+    (gridder_direct.fma32)."""
+    return fma32(*(torch.from_numpy(np.asarray(v, np.float32)) for v in (a, b, c))).numpy()
 
 
 def _stress_phases():
-    """Every float32 phase po − pi·k of the correctness problem (N = 32,
+    """Every float32 phase po − pi·k (one FMA) of the correctness problem (N = 32,
     T = 128, C = 16) at w = 2·10⁴, as the port forms it (plain version)."""
     from idg_tpu_torch.data import make_observation
 
@@ -430,7 +460,7 @@ def _stress_phases():
     obs, _ = make_observation(params)
     stg = stage(params, _stress_w(obs, STRESS_W), "cpu")
     pi, po = direct_geometry(stg, 0, stg.nr_subgrids)
-    return (po[:, :, None] - pi[:, :, None] * stg.wavenumbers[:, None]).numpy().ravel()
+    return gridder_phase(pi[:, :, None], stg.wavenumbers[:, None], po[:, :, None]).numpy().ravel()
 
 
 @pytest.mark.parametrize("model", ["reduced", "poly"])
