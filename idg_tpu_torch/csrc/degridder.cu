@@ -74,17 +74,23 @@
 //    the prologue) on 16 warps a SM, not the tensor cores, sets its pace.
 //
 // Fused prologue (kFuse): the input is the range extraction's block-rolled
-// pieces. Per pol, the block reads its piece un-rolled by (oy, ox) = oyx[s]
-// (an exact index permutation, tile[y][x] = piece[(y+oy)%N][(x+ox)%N], in
-// place of the TPU kernel's conjugate Fourier phases), K3
-// (common.cuh:dft2_tile) applies the forward folded-shift DFT, and the
-// subgrid lands in the stages' shared memory, free until the first tile,
-// where the taper/Jones prologue reads it in place of device memory. The
-// result is exactly the non-fused kernel on ops/grid.py:_finish_extract(pieces).
+// pieces. The block copies them as they are into the stages' shared memory
+// (cp.async, with K3's factors, split on the host, beside them), free until
+// the first tile, then splits them un-rolled by (oy, ox) = oyx[s] (an exact
+// index permutation, tile[y][x] = piece[(y+oy)%N][(x+ox)%N], in place of the
+// TPU kernel's conjugate Fourier phases) into K3's operand (dft.cuh) in the
+// lhs slots, free until the lhs is formed; K3 applies the forward
+// folded-shift DFT to all four pols at once on the TF32 tensor cores, on the
+// consumer warpgroups, and the subgrid lands back in the stages, rows
+// padded, where the taper/Jones prologue reads it in place of device
+// memory. The result is the non-fused kernel on
+// ops/grid.py:_finish_extract(pieces). At N = 32 above rank 2 each group of
+// ranks runs the prologue, and K3, again.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "dft.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -115,9 +121,17 @@ struct Tile {
   static constexpr size_t kStage = 2 * kBytesR + kBytesPhy + kVT * sizeof(float);
   // the warps' stage-2 sums, two tiles: [2][kConsWarps][kVT]
   static constexpr size_t kBytesRed = 2 * (size_t)kConsWarps * kVT * sizeof(float2);
-  // the fused prologue's subgrid [P][N·N], K3's input, row pass and factors
-  static constexpr size_t kPrologueBytes = (size_t)(kPols + 3) * N * N * sizeof(float2);
-  static_assert(kPrologueBytes <= 2 * kStage, "the fused prologue fits the stages");
+  // the fused prologue's subgrid [P][N][kLdSub] (rows padded, so that
+  // neither K3's stores nor the Jones prologue's reads meet 4-way bank
+  // conflicts) and K3's factors in the stages, K3's operand in the lhs slots
+  // (at least two: hi and lo of one rank)
+  static constexpr int kLdSub = N + 2;
+  static constexpr size_t kBytesSub = (size_t)kPols * N * kLdSub * sizeof(float2);
+  static_assert(kBytesSub + 2 * idg::Dft<N>::kBytesW <= 2 * kStage,
+                "the fused prologue's subgrid and factors fit the stages");
+  static_assert(2 * idg::Dft<N>::kBytesX <= 2 * kBytesL, "K3's operand fits two lhs slots");
+  static_assert(idg::Dft<N>::kGroups == kGroups, "K3 runs on the consumer warpgroups");
+  static_assert(kBytesSub % 128 == 0, "K3's factors stay 128-byte aligned");
   static_assert(kStage % 128 == 0 && kBytesR % 128 == 0 && kBytesPhy % 128 == 0,
                 "regions stay 128-byte aligned");
   static_assert(kProducers >= kVT * kPols, "one producer a tile output");
@@ -142,24 +156,6 @@ __device__ __forceinline__ void mma_rank(const unsigned char* lhs, const unsigne
   }
 }
 
-// sum (+)= (−i)^r · w · d per entry, w the entry's slot's μ^r/r! (slot
-// 2·(i >> 2) + (i & 1) of entry i; D_re in register i, D_im in 16 + i):
-// (−i)^r rotates by a quarter turn per rank, so each entry takes two FMAs
-// (kAdd) or two multiplies (sum = d, in place).
-template <bool kAdd>
-__device__ __forceinline__ void rotate_scale(float (&sum)[32], const float (&d)[32],
-                                             const float (&w)[8], int r) {
-  const float sign = (r & 2) ? -1.0f : 1.0f;
-  const bool odd = r & 1;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float a = sign * w[2 * (i >> 2) + (i & 1)];
-    const float re = odd ? d[16 + i] : d[i], im = odd ? -d[i] : d[16 + i];
-    sum[i] = kAdd ? fmaf(a, re, sum[i]) : a * re;
-    sum[16 + i] = kAdd ? fmaf(a, im, sum[16 + i]) : a * im;
-  }
-}
-
 template <int N, bool kFuse>
 __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
@@ -177,7 +173,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
     const int* __restrict__ station2,       // [S]
     const float2* __restrict__ subgrids,    // [S, P, N, N] subgrids, or pieces with kFuse
     const int* __restrict__ oyx,            // [S, 2] (kFuse only)
-    const float2* __restrict__ wf,          // [N, N] forward DFT factors (kFuse only)
+    const float* __restrict__ wr,           // [2, 2N, 2N] K3's split factors, forward (kFuse only)
     float2* __restrict__ out,               // [S, T, C, P]
     int T, int C, int nr_stations, int w_rank, int group) {
   using namespace idg;
@@ -227,6 +223,11 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
     }
   }
 
+  // the consumers' accumulators (the fused prologue's K3 takes acc's too)
+  float sum[32], acc[32];   // Σ_r conj(c_r)·D_r, and one rank's D_r
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sum[i] = acc[i] = 0.0f;
+
   // The prologue of the ranks [r0, r0 + nr): the fused form's subgrid,
   // then per pixel taper and A1 · P · A2ᴴ (math.hpp:79-92), and the split
   // lhs of each rank (n^r by r multiplies). A warp covers one core matrix
@@ -234,23 +235,50 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
   auto prologue = [&](int r0, int nr) {
     float2* s_sub = reinterpret_cast<float2*>(stages);
     if constexpr (kFuse) {
-      float2* s_x = s_sub + kPols * nn;
-      float2* s_tmp = s_x + nn;
-      float2* s_wf = s_tmp + nn;
-      for (int e = tid; e < N * N; e += kThreads) s_wf[e] = wf[e];
+      // K3 (dft.cuh): the pieces as they are into s_sub's padded rows and
+      // K3's factors beside them, by cp.async (every copy in flight at
+      // once, no registers); then the pieces un-rolled from there and split
+      // into its operand X [(p, y)][(re | im, x)] in the lhs slots (a warp
+      // on 8 y × 4 x of a pol: no bank conflicts on the stores); then the
+      // forward DFT of all four pols on the consumer warpgroups into s_sub
+      using D = Dft<N>;
+      // the thread index through an empty asm, so that nothing derived
+      // from it below is hoisted out of the rank groups' loop and kept
+      // live beside the consumers' accumulators
+      int ktid = tid;
+      asm volatile("" : "+r"(ktid));
+      float* x_hi = reinterpret_cast<float*>(lhs);
+      unsigned char* w = stages + TL::kBytesSub;
+      for (int i = ktid; i < kPols * N * N / 2; i += kThreads) {   // two complex values a copy
+        const int row = i / (N / 2), x2 = 2 * (i % (N / 2));      // row (p, y)
+        cp_async16(s_sub + row * TL::kLdSub + x2, sub_s + (size_t)row * N + x2);
+      }
+      dft_load_factors<N, kThreads>(wr, w, ktid);
+      cp_async_wait_all();
+      __syncthreads();
       // the roll is taken mod N, as the plain version takes it: no index leaves the tile
       const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
-#pragma unroll 1
-      for (int p = 0; p < kPols; ++p) {
-        for (int e = tid; e < N * N; e += kThreads) {
-          const int y = e / N, x = e % N;
-          s_x[e] = sub_s[p * nn + ((y + oy) % N) * N + (x + ox) % N];
-        }
-        __syncthreads();
-        float2* sub_p = s_sub + p * nn;
-        dft2_tile<N, kThreads>(s_x, s_tmp, s_wf,
-                               [&](int k1, int k2, float2 v) { sub_p[k1 * N + k2] = v; });
+      for (int e = ktid; e < kPols * N * N; e += kThreads) {
+        const int p = e / (N * N), q = e % (N * N);
+        const int x = ((q >> 5) % (N / 4)) * 4 + (q & 3);
+        const int y = ((q >> 5) / (N / 4)) * 8 + ((q >> 2) & 7);
+        dft_store_x<N>(x_hi, x_hi + D::kBytesX / 4, p, y, x,
+                       s_sub[(p * N + ((y + oy) & (N - 1))) * TL::kLdSub + ((x + ox) & (N - 1))]);
       }
+      fence_async_smem();
+      __syncthreads();
+      // sum's and acc's values are dead here (the next tile's first product
+      // of each overwrites it): zeros instead, so that neither set's values
+      // stay live beside K3's and the lhs formation's registers
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sum[i] = 0.0f;
+      if (!producer) {
+        dft2_products<N>(lhs, w, ktid / 128, ktid % 128, acc, [&](int p, int y, int x, float2 v) {
+          s_sub[(p * N + y) * TL::kLdSub + x] = v;
+        });
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
       __syncthreads();
     }
     for (int q = tid; q < N * N; q += kThreads) {
@@ -261,7 +289,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
       float2 p[kPols], o[kPols];
 #pragma unroll
       for (int i = 0; i < kPols; ++i) {
-        const float2 v = kFuse ? s_sub[i * nn + px] : sub_s[i * nn + px];
+        const float2 v = kFuse ? s_sub[(i * N + y) * TL::kLdSub + x] : sub_s[i * nn + px];
         p[i] = make_float2(v.x * taper, v.y * taper);
       }
       jones_degridder(aterms + (at1 + px) * kPols, aterms + (at2 + px) * kPols, p, o);
@@ -357,9 +385,6 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
   const int lane = tid & 31, cw = tid / 32, t4 = lane & 3;
   const int y0 = (16 * cw + (lane >> 2)) % N;
   const int wg = tid / 128;
-  float sum[32], acc[32];   // Σ_r conj(c_r)·D_r, and one rank's D_r
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sum[i] = acc[i] = 0.0f;
 
   // The products of ranks [r0, r0 + nr) on the tile in stage buf, and stage
   // 2: rank r0's product accumulates in `sum` itself, every later rank's in
@@ -452,7 +477,7 @@ cudaError_t launch(const float* uvw, const float* mu, const float* k, const floa
                    const float* po_y, const float* l, const float* m, const float* n,
                    const float* sph, const float2* aterms, const int* aterm_index,
                    const int* station1, const int* station2, const float2* subgrids,
-                   const int* oyx, const float2* wf, float2* out, int S, int T, int C,
+                   const int* oyx, const float* wr, float2* out, int S, int T, int C,
                    int nr_stations, int w_rank, cudaStream_t stream) {
   using TL = Tile<N>;
   int dev = 0, optin = 0;
@@ -476,7 +501,7 @@ cudaError_t launch(const float* uvw, const float* mu, const float* k, const floa
   if (err != cudaSuccess) return err;
   degridder_kernel<N, kFuse><<<S, TL::kThreads, bytes, stream>>>(
       uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
-      subgrids, oyx, wf, out, T, C, nr_stations, w_rank, group);
+      subgrids, oyx, wr, out, T, C, nr_stations, w_rank, group);
   return cudaGetLastError();
 }
 
@@ -484,7 +509,7 @@ template <bool kFuse>
 int dispatch(const void* uvw, const void* mu, const void* k, const void* po_x,
              const void* po_y, const void* l, const void* m, const void* n, const void* sph,
              const void* aterms, const void* aterm_index, const void* station1,
-             const void* station2, const void* subgrids, const void* oyx, const void* wf,
+             const void* station2, const void* subgrids, const void* oyx, const void* wr,
              void* out, int S, int T, int C, int N, int nr_stations, int w_rank,
              void* stream) {
   if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
@@ -496,7 +521,7 @@ int dispatch(const void* uvw, const void* mu, const void* k, const void* po_x,
       (const float*)po_y, (const float*)l, (const float*)m, (const float*)n,           \
       (const float*)sph, (const float2*)aterms, (const int*)aterm_index,               \
       (const int*)station1, (const int*)station2, (const float2*)subgrids,             \
-      (const int*)oyx, (const float2*)wf, (float2*)out, S, T, C, nr_stations, w_rank, st
+      (const int*)oyx, (const float*)wr, (float2*)out, S, T, C, nr_stations, w_rank, st
   switch (N) {
     case 16: return (int)launch<16, kFuse>(IDG_ARGS);
     case 32: return (int)launch<32, kFuse>(IDG_ARGS);
@@ -523,9 +548,9 @@ extern "C" int idg_degridder_v7_fused(
     const void* uvw, const void* mu, const void* k, const void* po_x, const void* po_y,
     const void* l, const void* m, const void* n, const void* sph, const void* aterms,
     const void* aterm_index, const void* station1, const void* station2,
-    const void* pieces, const void* oyx, const void* wf, void* out, int S, int T, int C,
+    const void* pieces, const void* oyx, const void* wr, void* out, int S, int T, int C,
     int N, int nr_stations, int w_rank, void* stream) {
   return dispatch<true>(uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                        station1, station2, pieces, oyx, wf, out, S, T, C, N, nr_stations,
+                        station1, station2, pieces, oyx, wr, out, S, T, C, N, nr_stations,
                         w_rank, stream);
 }

@@ -65,16 +65,23 @@
 //    block's warps, and the shared-memory traffic of both operands, read by
 //    every pass, bind it, not the tensor cores.
 //
-// Fused epilogue (kFuse): after the Jones/taper epilogue the tile sits in
-// shared memory; per pol, K3 (common.cuh:dft2_tile) applies the inverse
-// folded-shift DFT, and the store rolls it by (oy, ox) = oyx[s] as an exact
-// index permutation, piece[(y+oy)%N][(x+ox)%N] = idft[y][x]. The TPU kernel
-// put the roll on the tile as Fourier phases for its layout's sake
-// (grid.py:389-397); an index on the store is exact and free here.
+// Fused epilogue (kFuse): the Jones/taper epilogue writes the subgrid split
+// into K3's operand (dft.cuh), and K3 applies the inverse folded-shift DFT
+// to all four pols at once on the TF32 tensor cores, on the first two
+// warpgroups (one at N = 16) while the others are done; its store rolls the
+// result by (oy, ox) = oyx[s] as an exact index permutation,
+// piece[(y+oy)%N][(x+ox)%N] = idft[y][x]. The TPU kernel put the roll on the
+// tile as Fourier phases for its layout's sake (grid.py:389-397); an index
+// on the store is exact and free here. The epilogue's pixels (rows padded),
+// K3's operand and its factors take 130 KB at N = 32: the smallest block
+// (rank 4, one stage and the raw slots, both free by then) has that. K3's
+// factors come split from the host by cp.async, started before the
+// epilogue's pixels are formed.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "dft.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -104,9 +111,17 @@ struct Tile {
   __host__ __device__ static constexpr size_t stage_bytes(int rank) {
     return 2 * (size_t)kBytesW + 2 * (size_t)rank * kBytesL;
   }
-  // the epilogue's pixels [P][N][N], K3's row pass and its factors
-  static constexpr size_t kEpilogueBytes = (size_t)(kPols + 2) * N * N * sizeof(float2);
-  static_assert(kEpilogueBytes <= 2 * (size_t)kBytesW, "the epilogue fits a stage");
+  // the fused epilogue's pixels [P][N][kLdPix] (rows padded, so that
+  // neither the consumers' stores nor the epilogue's reads meet 4-way bank
+  // conflicts), then K3's operand and factors
+  static constexpr int kLdPix = N + 2;
+  static constexpr size_t kBytesPix = (size_t)kPols * N * kLdPix * sizeof(float2);
+  static constexpr size_t kEpilogueBytes = kBytesPix + idg::Dft<N>::kBytes;
+  // the smallest block at N = 32: rank 4, one stage and the raw slots
+  static_assert(kEpilogueBytes <= 2 * (size_t)kBytesW + 2 * 4 * (size_t)kBytesL + 2 * kRawBytes,
+                "the fused epilogue fits one stage");
+  static_assert(kBytesPix % 128 == 0, "K3's operand stays 128-byte aligned");
+  static_assert(idg::Dft<N>::kGroups * 128 <= kConsumers, "K3 runs on consumer warpgroups");
 };
 
 // Rank r's products over one tile of the stage at `stage`, this
@@ -145,7 +160,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     const int* __restrict__ station1,       // [S]
     const int* __restrict__ station2,       // [S]
     const int* __restrict__ oyx,            // [S, 2] (kFuse only)
-    const float2* __restrict__ wf,          // [N, N] inverse DFT factors (kFuse only)
+    const float* __restrict__ wr,           // [2, 2N, 2N] K3's split factors, inverse (kFuse only)
     float2* __restrict__ out,               // [S, P, N, N] subgrids, or pieces with kFuse
     int T, int C, int nr_stations, int w_rank, int stages) {
   using namespace idg;
@@ -330,16 +345,21 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     }
   }
 
-  // epilogue: the running sums into shared memory as [P][N][N], then per
-  // pixel A1ᴴ · P · A2 (math.hpp:64-77) and the taper
+  // epilogue: the running sums into shared memory as [P][N][N] (rows of
+  // kLdPix with kFuse), then per pixel A1ᴴ · P · A2 (math.hpp:64-77) and the
+  // taper. The fused form first starts the copy of K3's factors.
+  constexpr int kLdPix = kFuse ? TL::kLdPix : N;
   float2* s_pix = reinterpret_cast<float2*>(smem);
+  if constexpr (kFuse) {
+    dft_load_factors<N, kThreads>(wr, smem + TL::kBytesPix + 2 * Dft<N>::kBytesX, tid);
+  }
   if (!producer) {
 #pragma unroll
     for (int jj = 0; jj < N / 8; ++jj) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int y = 8 * jj + 2 * t4 + e;
-        s_pix[(p_out * N + y) * N + x_out] = sum[2 * jj + e];
+        s_pix[(p_out * N + y) * kLdPix + x_out] = sum[2 * jj + e];
       }
     }
   }
@@ -347,37 +367,54 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   const size_t nn = (size_t)N * N;
   const size_t at1 = ((size_t)aterm_index[s] * nr_stations + station1[s]) * nn;
   const size_t at2 = ((size_t)aterm_index[s] * nr_stations + station2[s]) * nn;
-  for (int q = tid; q < N * N; q += kThreads) {
-    float2 px[kPols], o[kPols];
+  if constexpr (!kFuse) {
+    for (int q = tid; q < N * N; q += kThreads) {
+      float2 px[kPols], o[kPols];
 #pragma unroll
-    for (int p = 0; p < kPols; ++p) px[p] = s_pix[p * nn + q];
-    jones_gridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, px, o);
-    const float taper = sph[q];
+      for (int p = 0; p < kPols; ++p) px[p] = s_pix[p * nn + q];
+      jones_gridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, px, o);
+      const float taper = sph[q];
 #pragma unroll
-    for (int p = 0; p < kPols; ++p) {
-      const float2 v = make_float2(o[p].x * taper, o[p].y * taper);
-      if constexpr (kFuse) {
-        s_pix[p * nn + q] = v;
-      } else {
-        out[((size_t)s * kPols + p) * nn + q] = v;
+      for (int p = 0; p < kPols; ++p) {
+        out[((size_t)s * kPols + p) * nn + q] = make_float2(o[p].x * taper, o[p].y * taper);
       }
     }
-  }
-
-  if constexpr (kFuse) {
-    float2* s_tmp = s_pix + kPols * nn;   // [N·N] K3's row pass
-    float2* s_wf = s_tmp + nn;            // [N·N] factors
-    for (int e = tid; e < N * N; e += kThreads) s_wf[e] = wf[e];
-    __syncthreads();
-    // the roll is taken mod N, as the plain version takes it: no index leaves the tile
-    const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
+  } else {
+    // K3 (dft.cuh): the epilogue's pixels split into its operand X [(p, y)]
+    // [(re | im, x)] after them, a warp on 8 y × 4 x (no bank conflicts),
+    // while its factors arrive beside it; then the inverse DFT of all four
+    // pols on the first Dft<N>::kGroups warpgroups, stored rolled
+    using D = Dft<N>;
+    float* x_hi = reinterpret_cast<float*>(smem + TL::kBytesPix);
+    float* x_lo = x_hi + D::kBytesX / 4;
+    const float* w_hi = x_lo + D::kBytesX / 4;
+    for (int e = tid; e < N * N; e += kThreads) {
+      const int x = ((e >> 5) % (N / 4)) * 4 + (e & 3);
+      const int y = ((e >> 5) / (N / 4)) * 8 + ((e >> 2) & 7);
+      const int q = y * N + x;
+      float2 px[kPols], o[kPols];
 #pragma unroll
-    for (int p = 0; p < kPols; ++p) {
-      float2* out_p = out + ((size_t)s * kPols + p) * nn;
-      dft2_tile<N, kThreads>(s_pix + p * nn, s_tmp, s_wf, [&](int y, int x, float2 v) {
-        out_p[((y + oy) % N) * N + (x + ox) % N] = v;
-      });
-      __syncthreads();   // the next pol rewrites K3's row pass
+      for (int p = 0; p < kPols; ++p) px[p] = s_pix[(p * N + y) * kLdPix + x];
+      jones_gridder(aterms + (at1 + q) * kPols, aterms + (at2 + q) * kPols, px, o);
+      const float taper = sph[q];
+#pragma unroll
+      for (int p = 0; p < kPols; ++p) {
+        dft_store_x<N>(x_hi, x_lo, p, y, x, make_float2(o[p].x * taper, o[p].y * taper));
+      }
+    }
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();
+    const bool k3 = __shfl_sync(0xffffffffu, tid < 128 * D::kGroups ? 1 : 0, 0) != 0;
+    if (k3) {
+      // the roll is taken mod N, as the plain version takes it: no index leaves the tile
+      const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
+      float2* out_s = out + (size_t)s * kPols * nn;
+      dft2_products<N>(reinterpret_cast<unsigned char*>(x_hi),
+                       reinterpret_cast<const unsigned char*>(w_hi), tid / 128, tid % 128,
+                       acc, [&](int p, int y, int x, float2 v) {
+                         out_s[p * nn + ((y + oy) & (N - 1)) * N + ((x + ox) & (N - 1))] = v;
+                       });
     }
   }
 }
@@ -387,7 +424,7 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
                    const float* po_x, const float* po_y, const float* l, const float* m,
                    const float* n, const float* sph, const float2* aterms,
                    const int* aterm_index, const int* station1, const int* station2,
-                   const int* oyx, const float2* wf, float2* out, int S, int T, int C,
+                   const int* oyx, const float* wr, float2* out, int S, int T, int C,
                    int nr_stations, int w_rank, cudaStream_t stream) {
   using TL = Tile<N>;
   int dev = 0, optin = 0;
@@ -399,13 +436,15 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
   // two stages where they fit (up to rank 3 at N = 32), else one
   const size_t stage = TL::stage_bytes(w_rank), raw = 2 * (size_t)kRawBytes;
   const int stages = 2 * stage + raw <= (size_t)optin ? 2 : 1;
-  const size_t bytes = stages * stage + raw;
+  size_t bytes = stages * stage + raw;
+  // the fused epilogue reuses the stages (and, past them, the raw slots)
+  if (kFuse && bytes < TL::kEpilogueBytes) bytes = TL::kEpilogueBytes;
   err = cudaFuncSetAttribute(gridder_kernel<N, kFuse>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   gridder_kernel<N, kFuse><<<S, TL::kThreads, bytes, stream>>>(
       uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1,
-      station2, oyx, wf, out, T, C, nr_stations, w_rank, stages);
+      station2, oyx, wr, out, T, C, nr_stations, w_rank, stages);
   return cudaGetLastError();
 }
 
@@ -413,7 +452,7 @@ template <bool kFuse>
 int dispatch(const void* uvw, const void* vis, const void* mu, const void* k,
              const void* po_x, const void* po_y, const void* l, const void* m,
              const void* n, const void* sph, const void* aterms, const void* aterm_index,
-             const void* station1, const void* station2, const void* oyx, const void* wf,
+             const void* station1, const void* station2, const void* oyx, const void* wr,
              void* out, int S, int T, int C, int N, int nr_stations, int w_rank,
              void* stream) {
   if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
@@ -425,7 +464,7 @@ int dispatch(const void* uvw, const void* vis, const void* mu, const void* k,
       (const float*)po_x, (const float*)po_y, (const float*)l, (const float*)m,        \
       (const float*)n, (const float*)sph, (const float2*)aterms,                       \
       (const int*)aterm_index, (const int*)station1, (const int*)station2,             \
-      (const int*)oyx, (const float2*)wf, (float2*)out, S, T, C, nr_stations, w_rank, st
+      (const int*)oyx, (const float*)wr, (float2*)out, S, T, C, nr_stations, w_rank, st
   switch (N) {
     case 16: return (int)launch<16, kFuse>(IDG_ARGS);
     case 32: return (int)launch<32, kFuse>(IDG_ARGS);
@@ -452,9 +491,9 @@ extern "C" int idg_gridder_v6_pieces(
     const void* uvw, const void* vis, const void* mu, const void* k, const void* po_x,
     const void* po_y, const void* l, const void* m, const void* n, const void* sph,
     const void* aterms, const void* aterm_index, const void* station1,
-    const void* station2, const void* oyx, const void* wf, void* out, int S, int T,
+    const void* station2, const void* oyx, const void* wr, void* out, int S, int T,
     int C, int N, int nr_stations, int w_rank, void* stream) {
   return dispatch<true>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                        station1, station2, oyx, wf, out, S, T, C, N, nr_stations,
+                        station1, station2, oyx, wr, out, S, T, C, N, nr_stations,
                         w_rank, stream);
 }

@@ -14,7 +14,7 @@ import torch
 
 from ...config import IDGParams
 from ..common import Staged, n_powers
-from ..grid import _finish_extract, dft_shift_factors_on
+from ..grid import _finish_extract, dft_split_factors_on
 from ..registry import register
 from . import build
 from .gridder import (
@@ -114,8 +114,8 @@ def degridder_cuda_v7(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if fused:
-            wf = dft_shift_factors_on(N, False, device)
-            rc = lib.idg_degridder_v7_fused(*common, ptr(fuse_oyx), ptr(wf), ptr(out),
+            wr = dft_split_factors_on(N, False, device)
+            rc = lib.idg_degridder_v7_fused(*common, ptr(fuse_oyx), ptr(wr), ptr(out),
                                             *sizes, stream)
         else:
             rc = lib.idg_degridder_v7(*common, ptr(out), *sizes, stream)

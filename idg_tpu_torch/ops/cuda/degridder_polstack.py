@@ -1,5 +1,6 @@
 """Degridder `cuda_v6`: the pol-stacked x-first kernel K9d
-(csrc/degridder_polstack.cu) and its plain PyTorch version.
+(csrc/degridder_polstack.cu, split bf16 on `wgmma`) and its plain PyTorch
+version.
 
 The function of idg_tpu/ops/pallas/degridder.py:_kernel_polstack (pallas_v6):
   B_p[y, x] = A1 · (sph·P) · A2ᴴ                                        (prologue)
@@ -83,7 +84,7 @@ def degridder_polstack_plain(params: IDGParams, stg: Staged, subgrids: torch.Ten
 @register(
     "degridder", "cuda_v6",
     "CUDA C++ pol-stacked x-first adjoint: per rank one [4N,2N]x[2N,2V] product "
-    "on the tensor cores (bf16 mma.sync, rank-0 3x2k), channel-recurrence Φ, "
+    "on the tensor cores (bf16 wgmma, rank-0 3x2k), channel-recurrence Φ, "
     "c-major; counterpart of pallas_v6",
     family="cuda", uniform_channels=True, fallback="cuda_v4",
 )

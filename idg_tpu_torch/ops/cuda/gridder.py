@@ -16,7 +16,7 @@ import torch
 
 from ...config import IDGParams
 from ..common import MAX_W_RANK, Staged, n_powers
-from ..grid import dft_shift_factors_on, pieces_from_subgrids
+from ..grid import dft_split_factors_on, pieces_from_subgrids
 from ..registry import register
 from . import build
 
@@ -231,14 +231,14 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
     out = torch.empty((S, P, N, N), dtype=torch.complex64, device=device)
     if S == 0:
         return out
-    wf = dft_shift_factors_on(N, True, device)
+    wr = dft_split_factors_on(N, True, device)
     lib = build.library()
     with torch.cuda.device(device):
         rc = lib.idg_gridder_v6_pieces(
             ptr(stg.uvw), ptr(stg.vis), ptr(stg.mu), ptr(stg.wavenumbers),
             ptr(stg.po_x), ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n),
             ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
-            ptr(stg.station2), ptr(oyx), ptr(wf), ptr(out),
+            ptr(stg.station2), ptr(oyx), ptr(wr), ptr(out),
             S, T, C, N, stg.aterms.shape[1], w_rank,
             torch.cuda.current_stream(device).cuda_stream,
         )

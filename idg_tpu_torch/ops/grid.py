@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..config import get_env_var
+from .precision import split_tf32
 
 # --------------------------------------------------------------------------
 # DFT factors and transforms (idg_tpu/ops/grid.py:31-109)
@@ -59,7 +60,7 @@ def dft_shift_factors(n: int, inverse: bool) -> np.ndarray:
     Wf[y, k] = Wdft[σ_in(y), σ_out(k)] with σ_in(y) = (y + n//2) % n and
     σ_out(k) = (k − n//2) % n, so fftshift2 → (i)DFT2 → fftshift2 is
     Wfᵀ·X·Wf. Rows are the input index, columns the output index. These
-    are the factors K3 (csrc/common.cuh:dft2_tile) applies."""
+    are the factors K3 (csrc/dft.cuh) applies."""
     w = dft_factors(n, inverse)
     j = np.arange(n)
     return np.ascontiguousarray(w[np.ix_((j + n // 2) % n, (j - n // 2) % n)])
@@ -71,9 +72,22 @@ def _factors_on(n: int, inverse: bool, shifted: bool, device: torch.device) -> t
     return torch.as_tensor(w, device=device)
 
 
-def dft_shift_factors_on(n: int, inverse: bool, device) -> torch.Tensor:
-    """`dft_shift_factors` as a c64 tensor on `device` (cached)."""
-    return _factors_on(n, inverse, True, torch.device(device))
+def dft_split_factors(n: int, inverse: bool) -> torch.Tensor:
+    """The factors K3 (csrc/dft.cuh) multiplies by on the tensor cores:
+    the real form Wr = [[W_re, W_im], [−W_im, W_re]] of
+    `dft_shift_factors(n, inverse)` (rows: input part and index, columns:
+    output part and index), transposed and split for "3xtf32" as
+    ops/precision.py:split_tf32 splits: f32[2, 2n, 2n], [hi | lo][(c_out,
+    k)][(c_in, j)]."""
+    w = dft_shift_factors(n, inverse)
+    wr = np.block([[w.real, w.imag], [-w.imag, w.real]]).astype(np.float32)
+    return torch.stack(split_tf32(torch.from_numpy(np.ascontiguousarray(wr.T))))
+
+
+@lru_cache(maxsize=None)
+def dft_split_factors_on(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """`dft_split_factors` on `device` (cached)."""
+    return dft_split_factors(n, inverse).to(device)
 
 
 def _apply_both_axes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

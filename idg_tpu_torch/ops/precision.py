@@ -23,9 +23,8 @@ JAX's "3x2" also recovers all four products, by stacking the splits on the
 row axis; it is a TPU layout that no rung of the port runs and is not
 ported. The bf16 tensor-core kernels take the same split with
 ``__float2bfloat16_rn`` and run each product into float32 accumulators:
-cuda_v4 and cuda_v5 as bf16 ``wgmma`` (csrc/gridder_sep_bf16.cu,
-degridder_sep_bf16.cu), degridder cuda_v6 as bf16 ``mma.sync``
-(csrc/degridder_polstack.cu);
+cuda_v4, cuda_v5 and degridder cuda_v6 as bf16 ``wgmma``
+(csrc/gridder_sep_bf16.cu, degridder_sep_bf16.cu, degridder_polstack.cu);
 K1 and K2 split with ``tf32_rn`` (csrc/wgmma.cuh), the rounding of
 `split_tf32`.
 """

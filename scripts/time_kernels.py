@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's gridder K1 (both forms), degridder K2 (both forms) and
-K10 (vadd) of one checkout on one CUDA card, for A/B comparisons of two
-versions of the kernels (the direct rungs: scripts/time_direct.py).
+"""Time the port's gridder K1 (both forms), degridder K2 (both forms), K3
+(the fused forms' (i)DFT), K9d (degridder cuda_v6) and K10 (vadd) of one
+checkout on one CUDA card, for A/B comparisons of two versions of the
+kernels (the direct rungs: scripts/time_direct.py).
 
-    python scripts/time_kernels.py ROOT TAG [k1,k2,vadd]
+    [SUBGRID_SIZE=16] python scripts/time_kernels.py ROOT TAG [k1,k2,polstack,vadd]
 
 ROOT is a checkout of the repository (the current one, or the parent commit
 unpacked with `git archive` into a directory that .gitignore lists); its
 kernels are built into ROOT/idg_tpu_torch/_build. It prints the ptxas
-registers and spills of K1's and K2's instances, then for each chosen
+registers and spills of K1's, K2's and K9d's instances, then for each chosen
 kernel its error against its plain version on the first 512 subgrids of the
-default problem (vadd: exact, at n = 2^28) and its time on the full problem
-(min over windows of back-to-back launches), vadd with one torch.add beside
-it; each line prefixed with TAG. Compare two checkouts in one call, in
-turns: parent, change, change, parent.
+default problem (the IDGParams env knobs apply; vadd: exact, at n = 2^28)
+and its time on the full problem (min over windows of back-to-back
+launches): for k1 and k2 both forms and K3's share, the fused form's time
+less the non-fused one's, beside one torch.fft.fft2 over the subgrids; for
+polstack also K9d's errors against the f64 oracle on the correctness
+problem at w = 0, rank 4 (w_scale 1000) and C = 48; vadd with one
+torch.add beside it. Each line is prefixed with TAG. Compare two checkouts
+in one call, in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import time
 
 def main(argv) -> int:
     root, tag = argv[1], argv[2]
-    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "vadd"]
+    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "polstack", "vadd"]
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -48,11 +53,12 @@ def main(argv) -> int:
     print(f"{tag} build {time.perf_counter() - t0:.1f} s", flush=True)
     lines = build.build_log.splitlines()
     for i, line in enumerate(lines):
-        for label, stem in (("K1", "gridder"), ("K2", "degridder")):
-            kernel = re.search(rf"\d+{stem}_kernelILi(\d+)ELb(\d)E", line)
+        for label, stem in (("K1", r"\d+gridder"), ("K2", r"\d+degridder"),
+                            ("K9d", "degridder_polstack")):
+            kernel = re.search(rf"{stem}_kernelILi(\d+)E(Lb(\d)E)?", line)
             if "Compiling entry" in line and kernel:
-                form = "fused" if kernel.group(2) == "1" else "non-fused"
-                print(f"{tag} ptxas {label} N = {kernel.group(1)} {form} |",
+                form = {"1": " fused", "0": " non-fused"}.get(kernel.group(3), "")
+                print(f"{tag} ptxas {label} N = {kernel.group(1)}{form} |",
                       " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
 
     harness = HarnessConfig(nr_warm_up_runs=1, nr_iterations=3, nr_windows=3)
@@ -91,11 +97,53 @@ def main(argv) -> int:
                      p, s, tgrid._finish_extract(sb, o), r),
                  (params, small, pieces[:k], 2, oyx[:k]), (params, stg, pieces, 2, oyx)),
             ]
+        times = {}
         for name, kernel, plain, small_args, full_args in cases:
             err = check_error(kernel(*small_args), plain(*small_args), verbose=False).mean_error
-            print(f"{tag} {name}: {ms(kernel, *full_args):.3f} ms, vs plain {err:.3e}",
-                  flush=True)
+            times[name] = ms(kernel, *full_args)
+            print(f"{tag} {name}: {times[name]:.3f} ms, vs plain {err:.3e}", flush=True)
+        # K3's share: each fused form less its non-fused form, beside one
+        # torch.fft.fft2 over the same c64[S, P, N, N] subgrids
+        fft_ms = ms(torch.fft.fft2, kernels.gridder_cuda_v6(params, stg, 2))
+        for fused, base in (("gridder_cuda_v6_pieces", "gridder_cuda_v6"),
+                            ("degridder_cuda_v7_fused", "degridder_cuda_v7")):
+            if fused in times:
+                print(f"{tag} K3 in {fused}: {times[fused] - times[base]:+.3f} ms over "
+                      f"{base}; torch.fft.fft2 {fft_ms:.3f} ms (N = {params.subgrid_size})",
+                      flush=True)
         del stg, small
+        torch.cuda.empty_cache()
+
+    if "polstack" in chosen:
+        import dataclasses
+
+        from idg_tpu_torch.data import make_observation, make_w_observation
+        from idg_tpu_torch.models.reference import degridder_reference
+        from idg_tpu_torch.ops.api import run_degridder
+
+        # against the f64 oracle: the correctness problem at w = 0, rank 4
+        # and C = 48 (the recurrence restarts at c = 16 and 32)
+        base = IDGParams.correctness_defaults()
+        params_w, obs_w, _ = make_w_observation(base, w_scale=1000.0)
+        params_c = dataclasses.replace(base, nr_channels=48)
+        for label, p, obs in (("w=0", base, make_observation(base)[0]),
+                              ("rank 4", params_w, obs_w),
+                              ("C = 48", params_c, make_observation(params_c)[0])):
+            sb = initialize_subgrids(p.nr_subgrids, p.nr_correlations, p.subgrid_size)
+            got = run_degridder(p, obs, sb, "cuda_v6", device="cuda")
+            err = check_error(got, degridder_reference(p, obs, sb), verbose=False).mean_error
+            print(f"{tag} oracle degridder cuda_v6 {label}: {err:.4e}", flush=True)
+        params = IDGParams.from_env()
+        stg = stage(params, make_perf_observation(params), "cuda", with_vis=False)
+        sub = torch.as_tensor(np.ascontiguousarray(initialize_subgrids(
+            params.nr_subgrids, params.nr_correlations, params.subgrid_size)), device="cuda")
+        small = slice_staged(stg, 0, 512)
+        err = check_error(kernels.degridder_cuda_v6(params, small, sub[:512], 2),
+                          kernels.degridder_polstack_plain(params, small, sub[:512], 2),
+                          verbose=False).mean_error
+        print(f"{tag} degridder_cuda_v6: {ms(kernels.degridder_cuda_v6, params, stg, sub, 2):.3f} "
+              f"ms, vs plain {err:.3e}", flush=True)
+        del stg, small, sub
         torch.cuda.empty_cache()
 
     if "vadd" in chosen:

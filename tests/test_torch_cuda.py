@@ -110,6 +110,22 @@ def test_k2_matches_plain_at_every_rank(card, n, rank):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 6])
+def test_k1_fused_matches_plain_at_every_rank(card, n, rank):
+    """K1's fused form (the inverse DFT K3 on the TF32 tensor cores, then
+    the roll) against its plain version at every Taylor rank on w ≠ 0
+    data: at N = 32 and rank 4 the epilogue fills the block's one stage."""
+    params, obs, _, _ = _inputs(n, 7, 1000.0)
+    md = obs.metadata
+    oyx = torch.from_numpy(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size, n))
+    stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
+    got = kernels.gridder_cuda_v6_pieces(params, stg_gpu, oyx.to(card), rank)
+    torch.cuda.synchronize()
+    _gate(got, kernels.gridder_v6_pieces_plain(params, stg_cpu, oyx, rank))
+
+
+@pytest.mark.cuda
 def test_launch_counters_count_kernel_launches(card):
     params, obs, sub, rank = _inputs(16, 8, None)
     stg = stage(params, obs, card)
@@ -449,14 +465,21 @@ def test_separable_launch_counters(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,channels,w_scale", [
     (16, 8, None), (32, 16, None), (16, 8, 45.0), (16, 8, 1000.0), (32, 16, 1000.0),
-    (16, 48, None), (32, 48, None),
+    (16, 48, None), (32, 48, None), (32, 8, 45.0), (32, 7, "ragged"), (16, 7, "ragged"),
 ])
 def test_polstack_kernel_matches_plain_and_oracle(card, n, channels, w_scale):
     """K9d (degridder cuda_v6) against its plain version and the oracle at
     N = 16 and 32: rank 2 at w = 0 and with μ != 0 (w_scale 45, the rank-1
-    single bf16 pass), rank 4 (w_scale 1000, "3x2k" throughout), and 48
-    channels, where the recurrence resyncs at c = 16 and 32."""
-    params, obs, sub, _ = _inputs(n, channels, w_scale)
+    single bf16 pass), rank 4 (w_scale 1000, "3x2k" throughout), 48
+    channels, where the recurrence resyncs at c = 16 and 32, and V = 37·7, a
+    ragged last tile of 32 timesteps."""
+    if w_scale == "ragged":
+        params = IDGParams(subgrid_size=n, nr_channels=channels,
+                           **dict(SMALL, nr_timesteps_subgrid=37))
+        obs, sub = make_observation(params, include_subgrids=True)
+        sub = np.ascontiguousarray(sub)
+    else:
+        params, obs, sub, _ = _inputs(n, channels, w_scale)
     rank = _resolve("degridder", "cuda_v6", params, obs)[1] or 2
     assert (rank == 4) == (w_scale == 1000.0)
     stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
@@ -464,6 +487,20 @@ def test_polstack_kernel_matches_plain_and_oracle(card, n, channels, w_scale):
     torch.cuda.synchronize()
     _gate(got, kernels.degridder_cuda_v6(params, stg_cpu, torch.from_numpy(sub), rank))
     _gate(got, degridder_reference(params, obs, sub))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 32])
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 6])
+def test_polstack_kernel_matches_plain_at_every_rank(card, n, rank):
+    """K9d against its plain version at every Taylor rank on w ≠ 0 data: at
+    N = 32 the ranks go four a group, and at rank 5 and 6 the second group
+    walks the tiles again, its recurrence from channel 0."""
+    params, obs, sub, _ = _inputs(n, 7, 1000.0)
+    stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
+    got = kernels.degridder_cuda_v6(params, stg_gpu, torch.from_numpy(sub).to(card), rank)
+    torch.cuda.synchronize()
+    _gate(got, kernels.degridder_cuda_v6(params, stg_cpu, torch.from_numpy(sub), rank))
 
 
 @pytest.mark.cuda
