@@ -18,11 +18,13 @@ non-zero:
               default problem (24,500 subgrids), launch-only timing; every
               wrapper's launch count is reset before and read after
   6. grid     the grid stage on the block-sorted default problem: the fused
-              gridder (K1 + K3 epilogue), the range grid-add (K4), the range
-              extraction (K5, exact) and the fused degridder (K2 + K3
-              prologue) each against its plain version on the first 512
-              subgrids (1e-5 gate), and each timed both ways on the full
-              problem; K3 (inside the fused forms, on the TF32 tensor
+              gridder (K1 + K3 epilogue), the range grid-add (K4; its ptxas
+              registers and spills, which must be none, and its resident
+              blocks an SM), the range extraction (K5, exact) and the fused
+              degridder (K2 + K3 prologue) each against its plain version on
+              the first 512 subgrids (1e-5 gate), and each timed both ways on
+              the full problem, where two launches of K4 must give the same
+              grid bit for bit; K3 (inside the fused forms, on the TF32 tensor
               cores), both directions, against the plain (i)DFT and roll
               on the full problem, and the fused forms' time over the
               non-fused ones at N = 32 and 16 beside one torch.fft.fft2
@@ -34,17 +36,20 @@ non-zero:
               every kernel of its path must have launched; then each against
               its --no-fuse composition (1e-5 gate on the outputs over
               max |ref|)
-  8. grid-add the piece grid-add K6 (LOFAR-4096 masked pieces), the merged
+  8. grid-add the piece grid-add K6 (LOFAR-4096 masked pieces), K4 on the
+              same problem's block-rolled pieces (its own JSON row,
+              grid_add_cuda_lofar4096; two launches bit for bit), the merged
               grid-add K7 (16384², m = 64, one stripe with wrap misses), the
               piece scatter K11a (default problem) and the slot gather K11b
               (LOFAR-4096) each against its plain version on the card (1e-5
-              gate), then each timed both ways at its full problem, and K4
-              timed on the LOFAR-4096 pieces beside the mask + K6 pass; then
-              every path of the `grid` command that reaches a grid-add kernel
-              (default, --no-fft, --method pallas, LOFAR-4096 with and without
-              --method pallas, 16384² to-grid and to-subgrids) with counted
-              launches; then phase 7 at LOFAR-4096 (GRID_SIZE=4096
-              NR_STATIONS=27), whose grid pipeline must take K6 and not K4
+              gate), then each timed both ways at its full problem, with the
+              masked pieces + K6 (the JAX dispatch's sparse route) timed
+              beside K4; then every path of the `grid` command that reaches a
+              grid-add kernel (default, --no-fft, --method pallas, LOFAR-4096
+              with and without --method pallas, 16384² to-grid and
+              to-subgrids) with counted launches, LOFAR-4096's on K4 and not
+              K6; then phase 7 at LOFAR-4096 (GRID_SIZE=4096
+              NR_STATIONS=27), whose grid pipeline must take K4 and not K6
   9. direct   the exact full-phase rungs cuda_v1 / cuda_v2 of both workloads
               (K8a, K9a; the complex MAC on TF32 mma.sync): ptxas registers
               and spills and the cuobjdump HMMA count of all eight instances
@@ -331,6 +336,38 @@ def kernels_vs_plain(rows, tag, cases, timing, plain_timing, flops, unit="fp32",
                                unit(name) if callable(unit) else unit))
 
 
+def k4_report() -> None:
+    """Print K4's ptxas registers and spills per instance (csrc/grid_add.cu)
+    and its resident blocks an SM; raise if an instance is missing or
+    spills."""
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops.cuda import build
+
+    lines = build.build_log.splitlines()
+    ptxas = {}
+    for i, line in enumerate(lines):
+        found = re.search(r"grid_add_kernelILi(\d+)E", line)
+        if "Compiling entry" in line and found:
+            ptxas[found.group(1)] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+    for n in ("32", "16"):
+        phase("grid", f"K4 (grid_add_kernel<{n}>): {kernels.grid_add_blocks_per_sm(int(n))} "
+                      f"blocks an SM; ptxas {ptxas.get(n, 'missing')}")
+    if sorted(ptxas) != ["16", "32"] or any(" 0 bytes spill stores" not in line
+                                            for line in ptxas.values()):
+        raise RuntimeError("K4: an instance is missing from ptxas's report or spills")
+
+
+def same_twice(name: str, first, second, tag: str) -> None:
+    """Raise unless two launches gave the same output bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    same = bool(torch.equal(first, second))
+    phase(tag, f"{name}: two launches give the same grid bit for bit: {same}")
+    if not same:
+        raise RuntimeError(f"{name} is not deterministic")
+
+
 def grid_stage_phase(rows, timing, plain_timing):
     """Phase 6: each grid-stage kernel against its plain version on the
     card, then timed both ways on the full block-sorted default problem;
@@ -422,6 +459,7 @@ def grid_stage_phase(rows, timing, plain_timing):
              "degridder_cuda_v7_fused": model_flops(params, True)}
     library = {"grid_add_cuda": lambda: index_add_grid(pieces, add_idx, p * g * g),
                "grid_extract_cuda": lambda: torch.view_as_real(grid).reshape(-1, 2)[extract_idx]}
+    k4_report()
     times = {}
     for name, kernel, plain, small_args, full_args, source, replaces, exact in cases:
         max_abs = compare(f"{name} vs plain on {k} subgrids", kernel(*small_args),
@@ -430,6 +468,8 @@ def grid_stage_phase(rows, timing, plain_timing):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(torch.view_as_real(full)).all()):
             raise RuntimeError(f"{name}: non-finite output on the full problem")
+        if name == "grid_add_cuda":
+            same_twice(name, full, kernel(*full_args), "grid")
         nbytes = tensor_bytes(*full_args) + full.nbytes
         del full
         k_ms = device_ms(kernel, *full_args, harness=timing)
@@ -503,11 +543,11 @@ def grid_stage_phase(rows, timing, plain_timing):
         torch.cuda.empty_cache()
 
 
-def pipeline_phase(rows, params=None, grid_add: str = "grid_add_cuda"):
+def pipeline_phase(rows, params=None, row_names=None):
     """Phase 7 (and its LOFAR-4096 run in phase 8): the `pipeline` command,
     each direction with counted launches, then against its --no-fuse form.
-    `grid_add` is the grid-add kernel the grid direction must take; the
-    other range grid-adds must not launch."""
+    The grid direction must take K4 (grid_add_cuda) and not K6. A kernel's
+    launches go to its JSON row, or to the row `row_names` gives for it."""
     import torch
 
     from idg_tpu_torch import cli
@@ -516,10 +556,11 @@ def pipeline_phase(rows, params=None, grid_add: str = "grid_add_cuda"):
     from idg_tpu_torch.utils.costs import workload_costs
 
     _, _, mvis = workload_costs(params or IDGParams.from_env())
-    path = {"grid": ("gridder_cuda_v6_pieces", grid_add),
+    path = {"grid": ("gridder_cuda_v6_pieces", "grid_add_cuda"),
             "degrid": ("grid_extract_cuda", "degridder_cuda_v7_fused")}
-    absent = {"grid": {"grid_add_cuda", "grid_add_pieces_cuda"} - {grid_add}, "degrid": set()}
+    absent = {"grid": {"grid_add_pieces_cuda"}, "degrid": set()}
     by_name = {row["name"]: row for row in rows}
+    row_names = row_names or {}
     for direction, names in path.items():
         from idg_tpu_torch.ops import cuda as kernels
 
@@ -532,7 +573,7 @@ def pipeline_phase(rows, params=None, grid_add: str = "grid_add_cuda"):
                           f"{res.kernel_seconds * 1e3:.3f} ms, grid stage "
                           f"{res.grid_seconds * 1e3:.3f} ms; launches {launches}")
         for name, n in launches.items():
-            by_name[name]["launches"] += n
+            by_name[row_names.get(name, name)]["launches"] += n
             if n == 0:
                 raise RuntimeError(f"{name} was never launched on the {direction} pipeline")
         for name, fused in K3_FORMS:   # K3 launches with its fused form
@@ -541,7 +582,7 @@ def pipeline_phase(rows, params=None, grid_add: str = "grid_add_cuda"):
         for name in absent[direction]:
             if counts[name]:
                 raise RuntimeError(f"{name} launched on the {direction} pipeline, which "
-                                   f"takes {grid_add}")
+                                   f"takes {names}")
         ref = cli._pipeline_one(direction, no_fuse=True, suffix="_nofuse", params=params)
         # gated on both outputs over max|ref|, which makes check_error's metric
         # a normalized RMS: the CLI's degrid grid is normal(0, 1), so the
@@ -561,10 +602,10 @@ def pipeline_phase(rows, params=None, grid_add: str = "grid_add_cuda"):
 
 
 def grid_add_phase(rows, timing, plain_timing):
-    """Phase 8: K6, K7, K11a and K11b against their plain versions at the
-    shapes the `grid` command and the LOFAR-4096 pipeline give them, timed
-    both ways; then the command's grid-add paths with counted launches, and
-    the LOFAR-4096 pipelines."""
+    """Phase 8: K6, K4 (LOFAR-4096, its own JSON row), K7, K11a and K11b
+    against their plain versions at the shapes the `grid` command and the
+    LOFAR-4096 pipeline give them, timed both ways; then the command's
+    grid-add paths with counted launches, and the LOFAR-4096 pipelines."""
     import torch
 
     from idg_tpu_torch import cli
@@ -572,6 +613,7 @@ def grid_add_phase(rows, timing, plain_timing):
     from idg_tpu_torch.data import make_perf_observation
     from idg_tpu_torch.ops import cuda as kernels
     from idg_tpu_torch.ops import grid as tgrid
+    from idg_tpu_torch.ops.cuda.grid import _home_corners
 
     gen = torch.Generator(device="cuda").manual_seed(11)
 
@@ -589,8 +631,9 @@ def grid_add_phase(rows, timing, plain_timing):
         return params, cx, cy, tiles, oyx
 
     def case(name, kernel, plain, args, source, replaces, library, detail=""):
-        """Kernel against plain, both timed, and the library yardstick: one
-        index_add_ of each piece into its block (`library`, no arguments)."""
+        """Kernel against plain, both timed, and the library yardstick
+        (`library`, no arguments): one index_add_ of each piece into its
+        block, or of every piece pixel into the grid (K4)."""
         got = kernel(*args)
         max_abs = compare(f"{name} vs plain{detail}", got, plain(*args), tag="grid-add")
         nbytes = tensor_bytes(args[0]) + got.nbytes
@@ -623,7 +666,10 @@ def grid_add_phase(rows, timing, plain_timing):
     del quad, tiles
     torch.cuda.empty_cache()
 
-    # K6 and K11b on LOFAR-4096; K4 on the same pieces beside mask + K6
+    # K6 and K11b on LOFAR-4096; K4 on the same problem's block-rolled
+    # pieces (the route its `grid` command and pipeline take), its library
+    # yardstick one index_add_ of every piece pixel, beside the masked
+    # pieces + K6 (the JAX dispatch's sparse route)
     params, cx, cy, tiles, oyx = problem(**LOFAR_4096)
     g, n = params.grid_size, params.subgrid_size
     plan = tgrid.plan_grid_add_ranges(cx, cy, g, n)
@@ -635,12 +681,20 @@ def grid_add_phase(rows, timing, plain_timing):
          (masked, plan), "idg_tpu_torch/csrc/grid_add_pieces.cu", "idg_tpu/ops/grid.py:616",
          run_library(masked, plan), f" (LOFAR-4096 masked pieces, {masked.shape[0]})")
     del masked
-    cxd, cyd = (torch.as_tensor(np.asarray(c, np.int32), device="cuda") for c in (cx, cy))
-    k4_ms = device_ms(kernels.grid_add_cuda, tiles, oyx, plan, g, harness=timing)
-    k6_ms = device_ms(lambda t: tgrid.subgrids_to_grid_ranges(None, cxd, cyd, g, plan=plan,
-                                                              tiles=t), tiles, harness=timing)
-    phase("grid-add", f"LOFAR-4096 grid stage on the same pieces: K4 {k4_ms:.3f} ms, "
-                      f"mask + K6 (the JAX dispatch, taken) {k6_ms:.3f} ms")
+    hcy, hcx = _home_corners(plan, oyx)
+    add_idx = window_index(hcy, hcx, oyx[:, 0], oyx[:, 1], n, g, params.nr_correlations)
+    case("grid_add_cuda_lofar4096", kernels.grid_add_cuda, kernels.grid_add_plain,
+         (tiles, oyx, plan, g), "idg_tpu_torch/csrc/grid_add.cu", "idg_tpu/ops/grid.py:923",
+         lambda: index_add_grid(tiles, add_idx, params.nr_correlations * g * g),
+         f" (LOFAR-4096 block-rolled pieces, {tiles.shape[0]})")
+    del add_idx
+    same_twice("grid_add_cuda_lofar4096", kernels.grid_add_cuda(tiles, oyx, plan, g),
+               kernels.grid_add_cuda(tiles, oyx, plan, g), "grid-add")
+    k6_ms = device_ms(lambda t: kernels.grid_add_pieces_cuda(
+        tgrid._mask_pieces(t, oyx[:, 0], oyx[:, 1]), plan), tiles, harness=timing)
+    k4_ms = next(row["ms"] for row in rows if row["name"] == "grid_add_cuda_lofar4096")
+    phase("grid-add", f"LOFAR-4096 grid stage on the same pieces: K4 {k4_ms:.3f} ms (taken), "
+                      f"mask + K6 (the JAX dispatch's sparse route) {k6_ms:.3f} ms")
     splan = tgrid.plan_grid_add(cx, cy, g, n)
     quad = tgrid._quadrant_pieces(tiles, cy, cx, g)
     case("grid_add_slots_cuda", kernels.grid_add_slots_cuda, kernels.grid_add_slots_plain,
@@ -689,19 +743,21 @@ def grid_add_phase(rows, timing, plain_timing):
 
     # the `grid` command's paths through the new kernels, counted launches
     by_name = {row["name"]: row for row in rows}
+    # (label, problem, options, the kernel it must launch and its JSON row)
     paths = (
-        ("grid", {}, {}, "grid_add_cuda"),
+        ("grid", {}, {}, "grid_add_cuda", "grid_add_cuda"),
         ("grid --no-fft --method ranges", {}, dict(no_fft=True, method="ranges"),
-         "grid_add_pieces_cuda"),
-        ("grid --method pallas", {}, dict(method="pallas"), "grid_add_scatter_cuda"),
+         "grid_add_pieces_cuda", "grid_add_pieces_cuda"),
+        ("grid --method pallas", {}, dict(method="pallas"), "grid_add_scatter_cuda",
+         "grid_add_scatter_cuda"),
         ("LOFAR-4096 grid --method pallas", LOFAR_4096, dict(method="pallas"),
-         "grid_add_slots_cuda"),
-        ("LOFAR-4096 grid", LOFAR_4096, {}, "grid_add_pieces_cuda"),
-        ("16384² grid", GRID_16384, {}, "grid_add_merged_cuda"),
+         "grid_add_slots_cuda", "grid_add_slots_cuda"),
+        ("LOFAR-4096 grid", LOFAR_4096, {}, "grid_add_cuda", "grid_add_cuda_lofar4096"),
+        ("16384² grid", GRID_16384, {}, "grid_add_merged_cuda", "grid_add_merged_cuda"),
         ("16384² grid --direction to-subgrids", GRID_16384, dict(direction="to-subgrids"),
-         "grid_extract_cuda"),
+         "grid_extract_cuda", "grid_extract_cuda"),
     )
-    for label, over, kwargs, name in paths:
+    for label, over, kwargs, name, row in paths:
         kernels.reset_launch_counts()
         res = cli._grid_one(params=IDGParams.from_env(**over), **kwargs)
         launches = {k: v for k, v in launch_counts().items() if v}
@@ -711,14 +767,17 @@ def grid_add_phase(rows, timing, plain_timing):
                           f"launches {launches}; output finite {finite}")
         if not launches.get(name):
             raise RuntimeError(f"{name} was never launched on `{label}`")
+        if row == "grid_add_cuda_lofar4096" and launches.get("grid_add_pieces_cuda"):
+            raise RuntimeError(f"`{label}` launched K6; its grid-add is K4")
         if not finite:
             raise RuntimeError(f"`{label}` gave a non-finite output")
-        by_name[name]["launches"] += launches.get(name, 0)
+        by_name[row]["launches"] += launches.get(name, 0)
         del res, outputs
         torch.cuda.empty_cache()
 
     # both LOFAR-4096 pipelines against their --no-fuse compositions
-    pipeline_phase(rows, IDGParams.from_env(**LOFAR_4096), grid_add="grid_add_pieces_cuda")
+    pipeline_phase(rows, IDGParams.from_env(**LOFAR_4096),
+                   row_names={"grid_add_cuda": "grid_add_cuda_lofar4096"})
 
 
 def direct_oracle_problems():

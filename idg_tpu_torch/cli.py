@@ -166,8 +166,8 @@ def _pipeline_one(direction: str = "grid", version: str | None = None,
     """One end-to-end pass, timed on the card (cmd_pipeline semantics of
     idg_tpu/cli.py:545-822). direction=grid: gridder with the fused iDFT
     epilogue → block-rolled pieces → range grid-add into [P, G, G], K4 on
-    the tile path and the masked pieces + K6 on sparse plans (LOFAR-4096),
-    as `ops/grid.py:ranges_route` says and the command prints.
+    dense and sparse plans (LOFAR-4096) alike, as `ops/grid.py:ranges_route`
+    says and the command prints.
     direction=degrid: range extraction (K5) → pieces → degridder with the
     fused forward-DFT prologue. With no_fuse, the non-fused kernel and a
     torch producer (roll phases and the DFT as matmuls, ops/grid.py) sit

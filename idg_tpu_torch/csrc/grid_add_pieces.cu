@@ -2,9 +2,10 @@
 // c64[P, rows·N, G] of the grid (the whole grid when rows = G/N).
 //
 // Replaces idg_tpu/ops/grid.py:_grid_add_ranges_call (launcher
-// _grid_add_ranges), the grid-add of sparse plans (more blocks than twice the
-// subgrids: LOFAR-4096), of the no-FFT path, and of each stripe of the
-// streamed 16384² path with merging off. With the subgrids sorted by home
+// _grid_add_ranges), the grid-add of the no-FFT path and of each stripe of
+// the streamed 16384² path with merging off (the JAX package also takes it
+// for sparse plans with the FFT; the port takes K4 there, csrc/grid_add.cu).
+// With the subgrids sorted by home
 // block, the pieces that add into grid block b from quadrant q are one
 // contiguous run [starts[q,b], starts[q,b] + lens[q,b]) of the piece array
 // (plan_grid_add_ranges, q·S folded in). The pieces are masked already

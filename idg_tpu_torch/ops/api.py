@@ -236,9 +236,9 @@ def gridded_pipeline_parts(params: IDGParams, obs_sorted: Observation,
     """The fused gridded-pipeline recipe, one source for the `pipeline` CLI
     and the bench: the per-subgrid rolls from the block-sorted metadata,
     the pieces runner (gridder with the fused iDFT epilogue) and the range
-    grid-add consumer, `subgrids_to_grid_ranges` on the pieces: K4 on the
-    tile path, the masked pieces and K6 on sparse plans
-    (ops/grid.py:ranges_route). `obs_sorted` must be block-sorted
+    grid-add consumer, `subgrids_to_grid_ranges` on the pieces: K4 on
+    dense and sparse plans alike (ops/grid.py:ranges_route). `obs_sorted`
+    must be block-sorted
     (ops/grid.py:sort_observation_blocks).
 
     Returns (pfn, pargs, gfn, resolved_version, plan): `gfn(pfn(*pargs))` is

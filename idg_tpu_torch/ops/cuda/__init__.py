@@ -12,10 +12,11 @@ from .degridder_direct import degridder_cuda_v1, degridder_cuda_v2, degridder_di
 from .degridder_polstack import degridder_cuda_v6, degridder_polstack_plain
 from .degridder_separable import (degridder_cuda_v3, degridder_cuda_v4, degridder_cuda_v5,
                                   degridder_separable_plain)
-from .grid import (grid_add_cuda, grid_add_merged_cuda, grid_add_merged_plain,
-                   grid_add_pieces_cuda, grid_add_pieces_plain, grid_add_plain,
-                   grid_add_scatter_cuda, grid_add_scatter_plain, grid_add_slots_cuda,
-                   grid_add_slots_plain, grid_extract_cuda, grid_extract_plain)
+from .grid import (grid_add_blocks_per_sm, grid_add_cuda, grid_add_merged_cuda,
+                   grid_add_merged_plain, grid_add_pieces_cuda, grid_add_pieces_plain,
+                   grid_add_plain, grid_add_scatter_cuda, grid_add_scatter_plain,
+                   grid_add_slots_cuda, grid_add_slots_plain, grid_extract_cuda,
+                   grid_extract_plain)
 from .gridder import gridder_cuda_v6, gridder_cuda_v6_pieces, gridder_plain, gridder_v6_pieces_plain
 from .gridder_direct import gridder_cuda_v1, gridder_cuda_v2, gridder_direct_plain
 from .gridder_separable import (gridder_cuda_v3, gridder_cuda_v4, gridder_cuda_v5,

@@ -34,13 +34,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# pointer args, integer args, then the stream, per entry point
+# pointer args, integer args, then the stream, per entry point (the
+# occupancy query: N, then the int it writes)
 SIGNATURES = {
     "idg_gridder_v6": [_P] * 15 + [_I] * 6 + [_P],
     "idg_gridder_v6_pieces": [_P] * 17 + [_I] * 6 + [_P],
     "idg_degridder_v7": [_P] * 15 + [_I] * 6 + [_P],
     "idg_degridder_v7_fused": [_P] * 17 + [_I] * 6 + [_P],
-    "idg_grid_add": [_P] * 5 + [_I] * 5 + [_P],
+    "idg_grid_add": [_P] * 4 + [_I] * 4 + [_P],
+    "idg_grid_add_occupancy": [_I, _P],
     "idg_grid_extract": [_P] * 4 + [_I] * 3 + [_P],
     "idg_grid_add_pieces": [_P] * 5 + [_I] * 5 + [_P],
     "idg_grid_add_merged": [_P] * 6 + [_I] * 7 + [_P],

@@ -12,6 +12,8 @@ There is no fallback between the two.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -52,7 +54,8 @@ def grid_add_cuda(pieces: torch.Tensor, oyx: torch.Tensor, plan: GridAddRangePla
                   grid_size: int) -> torch.Tensor:
     """Range grid-add of block-rolled pieces c64[S, P, N, N] (subgrids in
     block-sorted order, `plan` from their coords, `oyx` i32[S, 2] their
-    rolls) into a fresh c64[P, G, G] grid on the pieces' device.
+    rolls) into a fresh c64[P, G, G] grid on the pieces' device, every
+    block written once.
     `grid_add_cuda.launches` counts kernel launches."""
     s, p, n, _ = pieces.shape
     _check_geometry(n, p, grid_size)
@@ -67,13 +70,15 @@ def grid_add_cuda(pieces: torch.Tensor, oyx: torch.Tensor, plan: GridAddRangePla
         return grid_add_plain(pieces, oyx, plan, grid_size)
     if device.type != "cuda":
         raise ValueError(f"grid_add_cuda runs on cpu or cuda, not {device}")
+    if pieces.data_ptr() % 16 or oyx.data_ptr() % 8:
+        raise ValueError("grid_add_cuda loads pieces 16 bytes and rolls 8 bytes at a time: "
+                         "pieces must start on a 16-byte boundary, oyx on an 8-byte one")
     grid = torch.empty((p, grid_size, grid_size), dtype=torch.complex64, device=device)
-    tstarts, lens = plan.device_tables(device)
     lib = build.library()
     with torch.cuda.device(device):
         rc = lib.idg_grid_add(
-            ptr(pieces), ptr(oyx), ptr(tstarts), ptr(lens), ptr(grid),
-            plan.nb, plan.nbp, plan.nbx, grid_size, n,
+            ptr(pieces), ptr(oyx), ptr(plan.device_runs(device)), ptr(grid),
+            plan.nb, plan.nbx, grid_size, n,
             torch.cuda.current_stream(device).cuda_stream,
         )
     build.check(rc, "grid_add_cuda")
@@ -82,6 +87,15 @@ def grid_add_cuda(pieces: torch.Tensor, oyx: torch.Tensor, plan: GridAddRangePla
 
 
 grid_add_cuda.launches = 0
+
+
+def grid_add_blocks_per_sm(n: int) -> int:
+    """Resident CUDA blocks an SM of K4's N instance, as the runtime's
+    occupancy query gives it (the card's, so it builds the kernels)."""
+    blocks = ctypes.c_int(0)
+    build.check(build.library().idg_grid_add_occupancy(n, ctypes.byref(blocks)),
+                "grid_add_blocks_per_sm")
+    return blocks.value
 
 
 def grid_extract_plain(grid: torch.Tensor, coord_x: torch.Tensor, coord_y: torch.Tensor,

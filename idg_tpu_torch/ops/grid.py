@@ -13,10 +13,12 @@ offset inside its home N×N grid block, so that its pixel (i, j) lies at
 (i, j) of one of the four blocks the tile straddles. Subgrids must be sorted
 by home block (``sort_observation_blocks``) for the range plans.
 
-Sparse plans (more grid blocks than twice the subgrids) and the no-FFT
-path mask each piece into its four quadrant pieces first and add those with
-the piece grid-add (K6); grids of several GB stream block-row stripes
-through K6 or, merged m blocks per group, K7. The slot plan
+K4 adds the pieces of dense and sparse plans alike (the JAX package sends
+plans of more than 2·S blocks to masked pieces and its piece kernel; on
+Hopper K4 reads only its runs). The no-FFT path masks each tile into its
+four quadrant pieces first and adds those with the piece grid-add (K6);
+grids of several GB stream block-row stripes of masked pieces through K6
+or, merged m blocks per group, K7. The slot plan
 (``plan_grid_add``) feeds the piece scatter (K11a) and the slot gather
 (K11b) of ``subgrids_to_grid_pallas`` and the plain
 ``subgrids_to_grid_bucketed``. The kernels and their plain versions are in
@@ -487,9 +489,9 @@ class GridAddRangePlan(_PlanCache):
 
     starts/lens: i32[4, nbp], piece-array offsets (quadrant section q·S
     folded in, what K6 and K7 read) and run lengths; tstarts: the same
-    offsets in tile space (what K4 reads); w: the longest run (at least 8);
-    nbp: the block count rounded up to a multiple of 8. The tables equal
-    the JAX plan's."""
+    offsets in tile space; w: the longest run (at least 8); nbp: the block
+    count rounded up to a multiple of 8. The tables equal the JAX plan's;
+    K4 reads them as `block_runs`."""
 
     def __init__(self, starts, lens, w, nby, nbx, nbp, nr_subgrids,
                  grid_size, subgrid_size, tstarts=None):
@@ -512,12 +514,18 @@ class GridAddRangePlan(_PlanCache):
         """i64[S]: each sorted subgrid's home block (quadrant 0's runs)."""
         return np.repeat(np.arange(self.nb), self.lens[0, :self.nb])
 
-    def device_tables(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(tstarts, lens) as contiguous i32 tensors on `device`, uploaded
-        once per device (K4's tables)."""
+    def block_runs(self) -> np.ndarray:
+        """K4's table, i32[nb, 8]: per block its four run starts in tile
+        space, then the four run lengths (quadrants in `_QUADRANTS` order),
+        so that a CUDA block reads its runs as one 32-byte row."""
+        nb = self.nb
+        return np.concatenate([self.tstarts[:, :nb].T, self.lens[:, :nb].T], axis=1)
+
+    def device_runs(self, device) -> torch.Tensor:
+        """`block_runs` as a contiguous i32 tensor on `device`, uploaded
+        once per device."""
         device = torch.device(device)
-        return self.cached(("tiles", device), lambda: (
-            _i32_on(self.tstarts, device), _i32_on(self.lens, device)))
+        return self.cached(("runs", device), lambda: _i32_on(self.block_runs(), device))
 
     def stripe_tables(self, device, lo: int, hi: int):
         """K6's tables for blocks [lo, hi), uploaded once per device and
@@ -684,22 +692,22 @@ def plan_grid_add_merged(plan: GridAddRangePlan, m: int) -> GridAddMergedPlan | 
 
 
 def ranges_route(plan: GridAddRangePlan, apply_fft: bool = True, nr_correlations: int = 4) -> str:
-    """Which grid-add `subgrids_to_grid_ranges` takes for this plan (the
-    JAX dispatch, grid.py:1940-2021): "bucketed" when P·N² is not a
-    multiple of 1024, "tile" (K4) with apply_fft on plans of at most 2·S
-    blocks, "sparse" (masked pieces + K6) with apply_fft on sparser ones,
-    "quadrant" (quadrant pieces + K6) without the FFT."""
+    """Which grid-add `subgrids_to_grid_ranges` takes for this plan:
+    "bucketed" when P·N² is not a multiple of 1024, "tile" (K4) with
+    apply_fft, "quadrant" (quadrant pieces + K6) without the FFT. The JAX
+    dispatch (grid.py:1940-2021) sends plans of more than 2·S blocks to
+    masked pieces and its piece kernel instead of the tile kernel, which
+    paid for two window rows a quadrant in every block, occupied or not;
+    K4 reads only its runs and writes each block once, so on Hopper it is
+    the grid-add of sparse plans too."""
     if nr_correlations * plan.subgrid_size ** 2 % 1024:
         return "bucketed"
-    if not apply_fft:
-        return "quadrant"
-    return "tile" if plan.nbp <= 2 * plan.nr_subgrids else "sparse"
+    return "tile" if apply_fft else "quadrant"
 
 
 ROUTE_KERNELS = {
     "bucketed": "slot-plan gather in torch ops (no kernel)",
     "tile": "range grid-add K4 (grid_add_cuda)",
-    "sparse": "masked pieces + piece range grid-add K6 (grid_add_pieces_cuda)",
     "quadrant": "quadrant pieces + piece range grid-add K6 (grid_add_pieces_cuda)",
 }
 
@@ -709,9 +717,9 @@ def subgrids_to_grid_ranges(sub, coord_x, coord_y, grid_size: int, apply_fft: bo
                             plan: GridAddRangePlan | None = None,
                             tiles: torch.Tensor | None = None) -> torch.Tensor:
     """Grid-add through the range kernels: c64[P, G, G]. Requires
-    block-sorted coords. The route is `ranges_route`'s: K4 on the tile
-    path, the masked or quadrant pieces and K6 otherwise, the bucketed
-    gather when P·N² % 1024 ≠ 0.
+    block-sorted coords. The route is `ranges_route`'s: K4 on the
+    block-rolled pieces with the FFT, dense plan or sparse, the quadrant
+    pieces and K6 without it, the bucketed gather when P·N² % 1024 ≠ 0.
 
     `tiles` supplies block-rolled pieces already (the gridder's fused
     epilogue, ``gridder_cuda_v6_pieces``; it implies apply_fft) and `sub`
@@ -734,16 +742,13 @@ def subgrids_to_grid_ranges(sub, coord_x, coord_y, grid_size: int, apply_fft: bo
             raise ValueError("tiles requires the range kernels' P·N² % 1024 == 0")
         return subgrids_to_grid_bucketed(sub, coord_x, coord_y, grid_size, apply_fft,
                                          grid_in=grid_in)
-    oyx = _rolls(coord_x, coord_y, grid_size, n, x.device)
     if route == "quadrant":
         grid = grid_add_pieces_cuda(_quadrant_pieces(sub, coord_y, coord_x, grid_size), plan)
     else:
+        oyx = _rolls(coord_x, coord_y, grid_size, n, x.device)
         if tiles is None:
             tiles = pieces_from_subgrids(sub, oyx)
-        if route == "tile":
-            grid = grid_add_cuda(tiles, oyx, plan, grid_size)
-        else:
-            grid = grid_add_pieces_cuda(_mask_pieces(tiles, oyx[:, 0], oyx[:, 1]), plan)
+        grid = grid_add_cuda(tiles, oyx, plan, grid_size)
     return grid if grid_in is None else grid + grid_in
 
 

@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
 """Time the port's gridder K1 (both forms), degridder K2 (both forms), K3
-(the fused forms' (i)DFT), K9d (degridder cuda_v6) and K10 (vadd) of one
-checkout on one CUDA card, for A/B comparisons of two versions of the
-kernels (the direct rungs: scripts/time_direct.py).
+(the fused forms' (i)DFT), K4 (the range grid-add), K9d (degridder cuda_v6)
+and K10 (vadd) of one checkout on one CUDA card, for A/B comparisons of two
+versions of the kernels (the direct rungs: scripts/time_direct.py).
 
-    [SUBGRID_SIZE=16] python scripts/time_kernels.py ROOT TAG [k1,k2,polstack,vadd]
+    [SUBGRID_SIZE=16] python scripts/time_kernels.py ROOT TAG [k1,k2,k4,polstack,vadd]
 
 ROOT is a checkout of the repository (the current one, or the parent commit
 unpacked with `git archive` into a directory that .gitignore lists); its
 kernels are built into ROOT/idg_tpu_torch/_build. It prints the ptxas
-registers and spills of K1's, K2's and K9d's instances, then for each chosen
-kernel its error against its plain version on the first 512 subgrids of the
-default problem (the IDGParams env knobs apply; vadd: exact, at n = 2^28)
-and its time on the full problem (min over windows of back-to-back
-launches): for k1 and k2 both forms and K3's share, the fused form's time
-less the non-fused one's, beside one torch.fft.fft2 over the subgrids; for
-polstack also K9d's errors against the f64 oracle on the correctness
-problem at w = 0, rank 4 (w_scale 1000) and C = 48; vadd with one
-torch.add beside it. Each line is prefixed with TAG. Compare two checkouts
-in one call, in turns: parent, change, change, parent.
+registers and spills of K1's, K2's, K4's and K9d's instances, then for each
+chosen kernel its error against its plain version on the first 512
+subgrids of the default problem (the IDGParams env knobs apply; vadd:
+exact, at n = 2^28) and its time on the full problem (min over windows of
+back-to-back launches): for k1 and k2 both forms and K3's share, the fused
+form's time less the non-fused one's, beside one torch.fft.fft2 over the
+subgrids; for k4 on random block-rolled pieces of the block-sorted default
+and LOFAR-4096 problems (GRID_SIZE=4096, NR_STATIONS=27; against its plain
+version on all of LOFAR-4096's, and two launches compared bit for bit),
+with its resident blocks an SM where the checkout can query them, the
+masked pieces + K6 beside it on LOFAR-4096, and the gridded pipeline's pass
+at both problems; for polstack also K9d's errors against the f64 oracle on
+the correctness problem at w = 0, rank 4 (w_scale 1000) and C = 48; vadd
+with one torch.add beside it. Each line is prefixed with TAG. Compare two
+checkouts in one call, in turns: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import time
 
 def main(argv) -> int:
     root, tag = argv[1], argv[2]
-    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "polstack", "vadd"]
+    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "k4", "polstack", "vadd"]
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -54,7 +59,7 @@ def main(argv) -> int:
     lines = build.build_log.splitlines()
     for i, line in enumerate(lines):
         for label, stem in (("K1", r"\d+gridder"), ("K2", r"\d+degridder"),
-                            ("K9d", "degridder_polstack")):
+                            ("K4", "grid_add"), ("K9d", "degridder_polstack")):
             kernel = re.search(rf"{stem}_kernelILi(\d+)E(Lb(\d)E)?", line)
             if "Compiling entry" in line and kernel:
                 form = {"1": " fused", "0": " non-fused"}.get(kernel.group(3), "")
@@ -113,6 +118,49 @@ def main(argv) -> int:
                       flush=True)
         del stg, small
         torch.cuda.empty_cache()
+
+    if "k4" in chosen:
+        import contextlib
+        import io
+
+        from idg_tpu_torch import cli
+
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        occupancy = getattr(kernels, "grid_add_blocks_per_sm", None)
+        print(f"{tag} K4 blocks an SM: " + (", ".join(
+            f"N = {n} {occupancy(n)}" for n in (32, 16)) if occupancy else "no query"), flush=True)
+        for label, over in (("default", {}), ("LOFAR-4096", dict(grid_size=4096,
+                                                                 nr_stations=27))):
+            params = IDGParams.from_env(**over)
+            g, n = params.grid_size, params.subgrid_size
+            md = make_perf_observation(params).metadata
+            _, cx, cy = tgrid.sorted_block_coords(md.coord_x, md.coord_y, g, n)
+            tiles = torch.randn((params.nr_subgrids, params.nr_correlations, n, n),
+                                dtype=torch.complex64, device="cuda", generator=gen)
+            oyx = torch.as_tensor(tgrid.roll_offsets(cx, cy, g, n), device="cuda")
+            plan = tgrid.plan_grid_add_ranges(cx, cy, g, n)
+            k = 512 if label == "default" else params.nr_subgrids
+            plan_k = tgrid.plan_grid_add_ranges(cx[:k], cy[:k], g, n)
+            got = kernels.grid_add_cuda(tiles[:k], oyx[:k], plan_k, g)
+            err = check_error(got, kernels.grid_add_plain(tiles[:k], oyx[:k], plan_k, g),
+                              verbose=False).mean_error
+            same = bool(torch.equal(got, kernels.grid_add_cuda(tiles[:k], oyx[:k], plan_k, g)))
+            del got
+            line = (f"{tag} grid_add_cuda {label}: {ms(kernels.grid_add_cuda, tiles, oyx, plan, g):.3f}"
+                    f" ms, vs plain on {k} subgrids {err:.3e}, two launches identical {same}")
+            if label != "default":
+                line += ", mask + K6 {:.3f} ms".format(ms(
+                    lambda: kernels.grid_add_pieces_cuda(
+                        tgrid._mask_pieces(tiles, oyx[:, 0], oyx[:, 1]), plan)))
+            print(line, flush=True)
+            del tiles
+            torch.cuda.empty_cache()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = cli._pipeline_one("grid", params=params)
+            print(f"{tag} gridded pipeline {label}: {res.seconds * 1e3:.3f} ms/pass, grid stage "
+                  f"{res.grid_seconds * 1e3:.3f} ms", flush=True)
+            del res
+            torch.cuda.empty_cache()
 
     if "polstack" in chosen:
         import dataclasses

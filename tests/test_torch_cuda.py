@@ -272,22 +272,83 @@ def test_grid_add_piece_and_slot_kernels_match_plain(card, n, g, s):
 
 @pytest.mark.cuda
 def test_grid_add_launch_counters(card):
+    """The sparse plan (1,024 blocks > 2·S, LOFAR-4096's route) reaches K4
+    from uv subgrids and from pieces (the pipeline's form), not K6."""
     cx, cy, sub = _piece_problem(16, 512, 70)
     g = 512
     plan = tgrid.plan_grid_add_ranges(cx, cy, g, 16)
+    assert plan.nbp > 2 * len(cx)
     sub = sub.to(card)
+    oyx = torch.from_numpy(tgrid.roll_offsets(cx, cy, g, 16)).to(card)
+    pieces = tgrid.pieces_from_subgrids(sub, oyx)
     kernels.reset_launch_counts()
-    tgrid.subgrids_to_grid_ranges(sub, cx, cy, g, plan=plan)             # sparse: K6
+    tgrid.subgrids_to_grid_ranges(sub, cx, cy, g, plan=plan)             # sparse: K4
+    tgrid.subgrids_to_grid_ranges(None, cx, cy, g, plan=plan, tiles=pieces)
     tgrid.subgrids_to_grid_ranges(sub, cx, cy, g, apply_fft=False, plan=plan)
     tgrid.subgrids_to_grid_ranges_streamed(sub, cx, cy, g, plan=plan, merge=16)
     for mode in ("vmem", "gather"):
         tgrid.subgrids_to_grid_pallas(sub, cx, cy, g, mode=mode)
     torch.cuda.synchronize()
-    assert kernels.grid_add_pieces_cuda.launches == 2
+    assert kernels.grid_add_cuda.launches == 2
+    assert kernels.grid_add_pieces_cuda.launches == 1      # the no-FFT quadrant route
     assert kernels.grid_add_merged_cuda.launches == 1      # one stripe at G = 512
     assert kernels.grid_add_scatter_cuda.launches == 1
     assert kernels.grid_add_slots_cuda.launches == 1
-    assert kernels.grid_add_cuda.launches == 0
+
+
+def _k4_problem(n, g, s):
+    """Block-sorted coords with rolls from {0, 5, N − 1} on both axes and a
+    quarter of the subgrids on the last block row or column (their pieces
+    wrap into block row / column 0), and random block-rolled pieces."""
+    rng = np.random.default_rng(13)
+    nbx = g // n
+    bx, by = rng.integers(0, nbx, s), rng.integers(0, nbx, s)
+    bx[:s // 8], by[s // 8:s // 4] = nbx - 1, nbx - 1
+    rolls = np.array([0, 5, n - 1])
+    cx = bx * n + rolls[rng.integers(0, 3, s)]
+    cy = by * n + rolls[rng.integers(0, 3, s)]
+    order = tgrid.block_sort_order(cx, cy, g, n)
+    cx, cy = cx[order].astype(np.int32), cy[order].astype(np.int32)
+    shape = (s, 4, n, n)
+    pieces = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+    return (tgrid.plan_grid_add_ranges(cx, cy, g, n), torch.from_numpy(pieces),
+            torch.from_numpy(tgrid.roll_offsets(cx, cy, g, n)))
+
+
+def _run_order_sum(pieces, oyx, plan):
+    """K4's sums in its own order, on the CPU: block by block, quadrant by
+    quadrant, each run in order, the masked-out pixels added as zeros."""
+    n, g = plan.subgrid_size, plan.grid_size
+    i = torch.arange(n)
+    grid = torch.zeros((4, g, g), dtype=torch.complex64)
+    for b in range(plan.nb):
+        by, bx = divmod(b, plan.nbx)
+        for q, (qy, qx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+            t0 = int(plan.tstarts[q, b])
+            for t in range(t0, t0 + int(plan.lens[q, b])):
+                keep = (((i >= oyx[t, 0]) == (qy == 0))[:, None]
+                        & ((i >= oyx[t, 1]) == (qx == 0))[None, :])
+                grid[:, by * n:(by + 1) * n, bx * n:(bx + 1) * n] += torch.where(
+                    keep, pieces[t], torch.zeros((), dtype=torch.complex64))
+    return grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,g,s", [(16, 128, 40), (16, 256, 20), (32, 256, 40), (32, 256, 12),
+                                   (32, 1024, 200)])
+def test_k4_matches_plain_on_sparse_plans_and_edge_rolls(card, n, g, s):
+    """K4 on tile and sparse plans (nbp ≤ / > 2·S) with rolls 0, odd and
+    N − 1 and pieces that wrap: within the gate of its plain version, equal
+    bit for bit to the same sums in its order on the CPU, and bit for bit
+    the same from two launches."""
+    plan, pieces, oyx = _k4_problem(n, g, s)
+    pieces_gpu, oyx_gpu = pieces.to(card), oyx.to(card)
+    got = kernels.grid_add_cuda(pieces_gpu, oyx_gpu, plan, g)
+    again = kernels.grid_add_cuda(pieces_gpu, oyx_gpu, plan, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _gate(got, kernels.grid_add_plain(pieces, oyx, plan, g))
+    assert torch.equal(got.cpu(), _run_order_sum(pieces, oyx, plan))
 
 
 def _direct_problem(n, channels, w_value, timesteps=16):

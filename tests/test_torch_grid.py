@@ -185,7 +185,7 @@ def test_grid_add_matches_jax_ranges_and_scatter(problem):
     _gate(got, want_xla)
     _gate(tgrid.subgrids_to_grid(sub, cx, cy, g), want_xla)
     _gate(tgrid.subgrids_to_grid_ranges(sub, cx, cy, g), want_xla)
-    if problem.case == "tile":   # the JAX tile path; (h) covers sparse plans
+    if problem.case == "tile":   # the JAX tile path; (h) covers the sparse one
         want_ranges = jgrid.subgrids_to_grid_ranges(_pair(sub), cx, cy, g, apply_fft=True,
                                                     interpret=True)
         _gate(got, _complex(want_ranges))
@@ -332,13 +332,15 @@ def test_degrid_pipeline_matches_f64(problem):
     _gate(got, _f64_vis(problem))
 
 
-# (h) the range dispatch: sparse plans to K6, tile-path plans to K4 ------------------
+# (h) the range dispatch: sparse and tile-path plans to K4 --------------------------
 
 def test_sparse_plan_runs_on_the_range_grid_add(monkeypatch):
-    """The port routes as the JAX package does (grid.py:1955-2011): the sparse
-    plan (nbp > 2·S) through the masked pieces and the piece grid-add K6, the
-    tile-path plan through K4, both from uv subgrids and from the fused
-    gridder's pieces (the pipeline). On CPU tensors each wrapper runs its
+    """The JAX package routes the sparse plan (nbp > 2·S) through masked
+    pieces and its piece kernel and the tile-path plan through its tile
+    kernel (grid.py:1955-2011); the port takes K4 for both (the one
+    expected difference, `test_torch_grid_add.JAX_ROUTE_DIFFERENCES`),
+    from uv subgrids and from the fused gridder's pieces (the pipeline),
+    and matches JAX's grid on each. On CPU tensors each wrapper runs its
     plain version, which the spies below count."""
     import idg_tpu_torch.ops.cuda.grid as kgrid
 
@@ -349,7 +351,7 @@ def test_sparse_plan_runs_on_the_range_grid_add(monkeypatch):
             return _real(*args, **kwargs)
         monkeypatch.setattr(kgrid, name, spy)
     kernels.reset_launch_counts()
-    for case, route, kernel in (("sparse", "sparse", "grid_add_pieces_plain"),
+    for case, route, kernel in (("sparse", "tile", "grid_add_plain"),
                                 ("tile", "tile", "grid_add_plain")):
         problem = _problem(case)
         g, n = problem.params.grid_size, problem.params.subgrid_size

@@ -1,7 +1,8 @@
 """The port's grid-add formulations against the JAX package, on identical
 numpy inputs, at small size on the CPU: the slot plan and the merged plan
 (exact), the quadrant and masked pieces (exact), and every grid-add the
-`grid` command reaches: the range dispatch's sparse and no-FFT routes (K6),
+`grid` command reaches: the range dispatch's sparse route (K4, where the
+JAX package takes its piece kernel) and no-FFT route (K6),
 the merged stripe before its wrap-miss patch (K7), the streamed stripes,
 the slot-plan modes vmem (K11a) and gather (K11b), the bucketed gather and
 the per-plane scatter, and the `apply_fft` flags of the plain paths.
@@ -172,17 +173,38 @@ def test_quadrant_and_masked_pieces_equal_jax(case):
 
 # (b) the range dispatch: sparse, no-FFT and bucketed routes ---------------------
 
+# The one expected difference from the JAX dispatch: its sparse route
+# (masked pieces + its piece kernel, for plans of more than 2·S blocks) is
+# the tile route (K4) in the port, which reads only its runs on Hopper.
+JAX_ROUTE_DIFFERENCES = {"sparse": "tile"}
+ROUTE_PLAIN = {"tile": "grid_add_plain", "quadrant": "grid_add_pieces_plain"}
+
+
+def jax_route(plan, apply_fft: bool, p: int = P) -> str:
+    """The route the JAX package's subgrids_to_grid_ranges takes
+    (idg_tpu/ops/grid.py:1940-2021)."""
+    if p * N * N % 1024:
+        return "bucketed"
+    if not apply_fft:
+        return "quadrant"
+    return "tile" if plan.nbp <= 2 * plan.nr_subgrids else "sparse"
+
+
 @pytest.mark.parametrize("case,apply_fft,route", [
     ("wrap", True, "sparse"), ("sparse", False, "quadrant"), ("dense", False, "quadrant"),
 ])
 def test_ranges_routes_match_jax_interpret(case, apply_fft, route, monkeypatch):
+    """`route` is the JAX dispatch's; the port takes it but for
+    JAX_ROUTE_DIFFERENCES, and its grid matches JAX's either way."""
     pb = _problem(case)
     plan = pb.rplan()
-    assert tgrid.ranges_route(plan, apply_fft) == route
-    calls = _spy(monkeypatch, "grid_add_pieces_plain")
+    assert jax_route(plan, apply_fft) == route
+    port_route = JAX_ROUTE_DIFFERENCES.get(route, route)
+    assert tgrid.ranges_route(plan, apply_fft) == port_route
+    calls = _spy(monkeypatch, ROUTE_PLAIN[port_route])
     got = tgrid.subgrids_to_grid_ranges(pb.tsub, pb.cx, pb.cy, pb.g, apply_fft,
                                         grid_in=torch.from_numpy(pb.grid_in), plan=plan)
-    assert calls == ["grid_add_pieces_plain"]
+    assert calls == [ROUTE_PLAIN[port_route]]
     want = jgrid.subgrids_to_grid_ranges(pb.pair, pb.cx, pb.cy, pb.g, apply_fft,
                                          interpret=True, grid_in=_pair(pb.grid_in),
                                          plan=jgrid.plan_grid_add_ranges(pb.cx, pb.cy, pb.g, N))
