@@ -63,7 +63,7 @@ non-zero:
               against their plain versions (first 512 default subgrids; vadd
               exactly, at n = 2^28), then timed both ways on the full problem (the plain
               direct versions one call); `sweep --mode check` over every
-              version; both pipelines with --no-fuse --version cuda_v1
+              version (25: the 15 cuda_* rungs and the ten torch_*); both pipelines with --no-fuse --version cuda_v1
               (counted launches; refused without --no-fuse); then this
               slice's main path, perf mode for the four
               direct versions and `vadd` with and without --cuda, with
@@ -117,7 +117,22 @@ non-zero:
               counted launches (K2_ORACLE_GATE); both forms against their
               plain versions on the first 512 default subgrids
               (K2_PLAIN_GATE) and timed; and the phase's seconds
-Then a JSON line of per-kernel results (each with its bound from
+ 14. ladder   the compiler ladder (torch_reference, torch_v1–v4 of both
+              workloads; PyTorch on the card, no hand-written kernel, none
+              of whose launch counts may move): each rung through the API
+              against the f64 oracle (1e-5) at w = 0 and on
+              make_w_observation's data, and against its cuda_* neighbour of
+              the same function (LADDER_NEIGHBOURS, 1e-5); perf mode of each
+              at the full widths on the default problem with 0 warm-ups, 1 iteration and 1 window; then
+              `run --sustain 5` for gridder cuda_v6 (K1) and degridder
+              cuda_v7 (K2), sustained ms beside min-of-windows, launches,
+              window and drift, the launch count rising by the launches the
+              window reports plus the 2 + NR_WARM_UP_RUNS before it; then
+              scripts/validate_cuda.py's sections (every rung at w = 0 and
+              w != 0, the grid stage, the fused pipelines), any row not
+              PASSED raising; and the phase's seconds
+Phases 1-8 print their seconds under [time], as does phase 9's check sweep
+and the run as a whole. Then a JSON line of per-kernel results (each with its bound from
 idg_tpu_torch/utils/roofline.py: the larger of its bytes over 3.35 TB/s and
 its operations over the FP32, bf16 or TF32 peak; and the time of one PyTorch call
 computing the same function where there is one), the `nvidia-smi` line, and
@@ -160,6 +175,10 @@ DIRECT_PLAIN_GATE = 3e-6   # K8a and K9a against their plain versions, 512 defau
 K9D_ORACLE_ERRORS = {"w=0": 5.626e-06, "rank 4 (w_scale 1000)": 5.628e-06,
                      f"C = {RESYNC_CHANNELS} (resync)": 7.002e-06}
 K9D_ORACLE_SLACK = 1.1
+# the compiler ladder's rungs, each with the cuda_* rung of the same function
+LADDER_NEIGHBOURS = {"torch_reference": "cuda_v1", "torch_v1": "cuda_v1",
+                     "torch_v2": "cuda_v1", "torch_v3": "cuda_v2", "torch_v4": "cuda_v3"}
+SUSTAIN_S = 5.0          # `run --sustain` window of K1 and K2
 # K3's two rows: the form of the fused kernel it runs in, the form's
 # non-fused kernel, and the TPU function it replaces
 K3_FORMS = (("k3_in_gridder_cuda_v6_pieces", "gridder_cuda_v6_pieces"),
@@ -273,6 +292,12 @@ def launch_counts() -> dict:
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def phase_done(label: str, t0: float) -> float:
+    """Print the seconds since t0 under [time]; return the clock now."""
+    phase("time", f"{label}: {time.perf_counter() - t0:.1f} s")
+    return time.perf_counter()
 
 
 def device_ms(fn, *args, harness) -> float:
@@ -946,6 +971,7 @@ def direct_phase(rows, timing):
     torch.cuda.empty_cache()
 
     # the check sweep over every registered version, through the CLI
+    t_sweep = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(["sweep", "--mode", "check"])
@@ -954,6 +980,7 @@ def direct_phase(rows, timing):
             phase("direct", f"sweep: {line}")
     if rc != 0:
         raise RuntimeError(f"sweep --mode check exited {rc}")
+    phase_done("phase 9's check sweep", t_sweep)
 
     # the direct rungs have no fused form: the pipelines take them with
     # --no-fuse and refuse them without
@@ -1602,6 +1629,148 @@ def k2_phase(rows, timing):
     phase("K2", f"phase 13: {time.perf_counter() - t_start:.1f} s")
 
 
+def validate_module():
+    """scripts/validate_cuda.py, imported as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("validate_cuda",
+                                                  ROOT / "scripts" / "validate_cuda.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def ladder_phase():
+    """Phase 14: the compiler ladder on the card (against the oracle and
+    its cuda_* neighbours, then perf mode at the full widths), the
+    sustained window of K1 and K2 through `run --sustain`, and
+    scripts/validate_cuda.py's sections."""
+    import warnings
+    from unittest import mock
+
+    import torch
+
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.config import HarnessConfig, IDGParams
+    from idg_tpu_torch.data import make_observation, make_w_observation
+    from idg_tpu_torch.models.reference import degridder_reference, gridder_reference
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops.api import _resolve, run_degridder, run_gridder
+    from idg_tpu_torch.utils import timing as ttiming
+    from idg_tpu_torch.utils.compare import check_error
+    from idg_tpu_torch.utils.costs import workload_costs
+
+    t_start = time.perf_counter()
+    ladder = [(w, v) for w in ("gridder", "degridder") for v in LADDER_NEIGHBOURS]
+
+    # each rung against the oracle and its cuda_* neighbour, at w = 0 and w != 0
+    params = IDGParams.correctness_defaults()
+    obs0, sub0 = make_observation(params, include_subgrids=True)
+    params_w, obs_w, sub_w = make_w_observation(params, include_subgrids=True)
+    kernels.reset_launch_counts()
+    for label, p, obs, sub in (("w=0", params, obs0, sub0), ("w!=0", params_w, obs_w, sub_w)):
+        oracle = {"gridder": gridder_reference(p, obs),
+                  "degridder": degridder_reference(p, obs, sub)}
+
+        def run(workload, version):
+            if workload == "gridder":
+                return run_gridder(p, obs, version, device="cuda")
+            return run_degridder(p, obs, sub, version, device="cuda")
+
+        for workload, version in ladder:
+            neighbour = LADDER_NEIGHBOURS[version]
+            with warnings.catch_warnings(record=True) as record:
+                warnings.simplefilter("always")
+                resolved = _resolve(workload, version, p, obs)
+                got = run(workload, version)
+                near = run(workload, neighbour)
+            fell_back = [str(w.message) for w in record if "falling back" in str(w.message)]
+            res = check_error(got, oracle[workload], verbose=False)
+            apart = check_error(got, near, verbose=False)
+            finite = bool(torch.isfinite(torch.view_as_real(got)).all())
+            ok = (res.passed and apart.passed and finite and resolved[0] == version
+                  and not fell_back)
+            phase("ladder", f"{workload} {version} {label}: resolved {resolved}, mean_error "
+                            f"{res.mean_error:.3e} (gate {GATE:g}); against {neighbour} "
+                            f"{apart.mean_error:.3e} {'PASSED' if ok else 'FAILED'}")
+            if not ok:
+                raise RuntimeError(f"{workload} {version} {label} failed")
+
+    # perf mode at the full widths, two launches a rung; the ladder is PyTorch
+    # and launches no hand-written kernel
+    perf = IDGParams.from_env()
+    _, _, mvis = workload_costs(perf)
+    t_perf = time.perf_counter()
+    one_window = {"NR_WARM_UP_RUNS": "0", "NR_ITERATIONS": "1", "NR_WINDOWS": "1"}
+    with mock.patch.dict(os.environ, one_window):
+        for workload, version in ladder:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            s = cli._perf_one(workload, version, params=perf)
+            launched = {name: n for name, n in launch_counts().items() if n}
+            phase("ladder", f"{workload}_{version}: {s * 1e3:.3f} ms/pass, {mvis / s:.2f} MVis/s "
+                            f"({perf.nr_subgrids} subgrids; {time.perf_counter() - t0:.1f} s "
+                            f"with staging); kernel launches {launched or 'none'}")
+            if launched:
+                raise RuntimeError(f"{workload} {version} launched hand-written kernels")
+            torch.cuda.empty_cache()
+    phase("ladder", f"perf of the ten rungs: {time.perf_counter() - t_perf:.1f} s")
+
+    # run --sustain for K1 and K2: the launch count rises by the launches the
+    # window reports and the 2 + NR_WARM_UP_RUNS before it
+    windows = []
+    sustained, timed = ttiming.time_kernel_sustained, ttiming.time_kernel
+
+    def counted_sustained(fn, *args, **kw):
+        before = sum(launch_counts().values())
+        res = sustained(fn, *args, **kw)
+        windows.append((res, sum(launch_counts().values()) - before))
+        return res
+
+    def noted_time(fn, *args, **kw):
+        res = timed(fn, *args, **kw)
+        windows.append(res)
+        return res
+
+    warm = HarnessConfig.from_env().nr_warm_up_runs
+    for workload, version, name in (("gridder", "cuda_v6", "gridder_cuda_v6"),
+                                    ("degridder", "cuda_v7", "degridder_cuda_v7")):
+        windows.clear()
+        kernels.reset_launch_counts()
+        ttiming.time_kernel_sustained, ttiming.time_kernel = counted_sustained, noted_time
+        try:
+            rc = cli.main(["run", "--workload", workload, "--version", version,
+                           "--sustain", str(SUSTAIN_S)])
+        finally:
+            ttiming.time_kernel_sustained, ttiming.time_kernel = sustained, timed
+        (headline, (sus, counted)) = windows
+        ok = (rc == 0 and counted == sus.launches + 2 + warm and sus.launches >= 10
+              and launch_counts()[name] > counted)
+        phase("sustain", f"{name}: sustained {sus.seconds * 1e3:.3f} ms/launch over "
+                         f"{sus.launches} launches in {sus.window_seconds:.2f} s "
+                         f"({len(sus.chunk_seconds)} chunks), min-of-windows "
+                         f"{headline.seconds * 1e3:.3f} ms, drift {sus.drift_pct:+.2f}%; "
+                         f"launch count {counted} in the window's call "
+                         f"({sus.launches} + 2 + {warm} warm-ups) {'PASSED' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"run --sustain {workload} {version} failed")
+        torch.cuda.empty_cache()
+
+    # scripts/validate_cuda.py's sections
+    val = validate_module()
+    rows = (val.run_section(params, obs0, sub0, "cuda")
+            + val.run_section(params_w, obs_w, sub_w, "cuda")
+            + val.grid_stage_section("cuda") + val.fused_section("cuda"))
+    for row in rows:
+        phase("validate", row)
+    bad = val.failed(rows)
+    if bad:
+        raise RuntimeError(f"{len(bad)} validation row(s) did not pass")
+    phase("validate", f"{len(rows)} rows PASSED")
+    torch.cuda.empty_cache()
+    phase("ladder", f"phase 14: {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1629,6 +1798,7 @@ def main() -> int:
     from idg_tpu_torch.utils import roofline
     from idg_tpu_torch.utils.printing import nvidia_smi_power_line
 
+    t_run = t_phase = time.perf_counter()
     # 1. device
     count = torch.cuda.device_count()
     kind = torch.cuda.get_device_name(0)
@@ -1645,6 +1815,7 @@ def main() -> int:
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             phase("build", line.strip())
+    t_phase = phase_done("phases 1-2", t_phase)
 
     # 3. check mode against the f64 oracle
     params_c = IDGParams.correctness_defaults()
@@ -1673,6 +1844,7 @@ def main() -> int:
                        f"mean_error {res.mean_error:.3e} {'PASSED' if res.passed else 'FAILED'}")
         if not res.passed or rank is None or rank < 3:
             raise RuntimeError(f"{workload} {version} w!=0 check failed (rank {rank})")
+    t_phase = phase_done("phase 3", t_phase)
 
     # 4. kernel against plain version on the card
     params = IDGParams.from_env()
@@ -1698,6 +1870,7 @@ def main() -> int:
                      unit=lambda name: roofline.unit(*name.split("_", 1)))
     del stg, small, sub_t
     torch.cuda.empty_cache()
+    t_phase = phase_done("phase 4", t_phase)
 
     # 5. the main path: perf mode through the CLI, counted launches
     _, _, mvis = workload_costs(params)
@@ -1717,15 +1890,19 @@ def main() -> int:
                       f"{mvis / seconds[name]:.2f} MVis/s, launches {launches[name]}")
         if launches[name] == 0:
             raise RuntimeError(f"{name} was never launched on the main path")
+    t_phase = phase_done("phase 5", t_phase)
 
     # 6. the grid stage, kernel against plain version on the card
     grid_stage_phase(rows, timing, plain_timing)
+    t_phase = phase_done("phase 6", t_phase)
 
     # 7. the pipelines through the CLI, counted launches
     pipeline_phase(rows)
+    t_phase = phase_done("phase 7", t_phase)
 
     # 8. the grid-add kernels, the `grid` command and LOFAR-4096
     grid_add_phase(rows, timing, plain_timing)
+    phase_done("phase 8", t_phase)
 
     # 9. the direct rungs, the w-free rungs, sweep and vadd
     direct_phase(rows, timing)
@@ -1741,6 +1918,10 @@ def main() -> int:
 
     # 13. the redesigned K2 on the TF32 tensor cores
     k2_phase(rows, timing)
+
+    # 14. the compiler ladder, the sustained window of K1 and K2, the validation sweep
+    ladder_phase()
+    phase_done("all phases", t_run)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

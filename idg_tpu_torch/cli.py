@@ -10,6 +10,9 @@ mode and device, and honors the same env vars.
   python -m idg_tpu_torch run --workload gridder --version cuda_v1 --w-obs
   python -m idg_tpu_torch run --workload degridder --version cuda_v4 --mode check
   python -m idg_tpu_torch run --workload degridder --version cuda_v6
+  python -m idg_tpu_torch run --workload gridder --sustain 10
+  python -m idg_tpu_torch run --workload gridder --version torch_v4
+  python -m idg_tpu_torch run --workload degridder --version torch_v2 --mode check --device cpu
   python -m idg_tpu_torch sweep --mode check --device cpu
   python -m idg_tpu_torch vadd --cuda
   python -m idg_tpu_torch pipeline --direction grid
@@ -60,19 +63,22 @@ def _perf_problem(workload: str, version: str, w_rank: int | None = None, params
 
 def _perf_one(workload: str, version: str, w_rank: int | None = None,
               params=None, device: str = "cuda", name_suffix: str = "",
-              w_obs: bool = False) -> float:
+              w_obs: bool = False, sustain_s: float | None = None) -> float:
     """Performance mode (p_run_gridder_ semantics, app/CUDA/util.cpp:172-249):
     stage once, time bare kernel launches, print and write the CSV, named as
     `_perf_problem` says, with the roofline % of the resolved rung's unit on
-    a known card (idg_tpu/cli.py:175-177). Returns the min-of-windows
-    seconds per launch."""
+    a known card (idg_tpu/cli.py:175-177). With `sustain_s`, also a
+    sustained window of about that many seconds (`time_kernel_sustained`,
+    idg_tpu/cli.py:179-197): its console line, and the CSV rows
+    sustained_ms, sustain_launches, sustain_window_s and sustain_drift_pct.
+    Returns the min-of-windows seconds per launch."""
     from .config import HarnessConfig
     from .ops.api import resolve_device, staged_runner
     from .utils.costs import workload_costs
     from .utils.printing import print_device_info, print_parameters
     from .utils.report import device_name, report, report_csv
     from .utils.roofline import roofline_fraction
-    from .utils.timing import time_kernel
+    from .utils.timing import time_kernel, time_kernel_sustained
 
     dev = resolve_device(device)
     if dev.type != "cuda":
@@ -88,11 +94,20 @@ def _perf_one(workload: str, version: str, w_rank: int | None = None,
     gflops, gbytes, mvis = workload_costs(params)
     roofline = roofline_fraction(gflops / timing.seconds, gflops, gbytes, device_name(),
                                  workload, version)
+    extra = None
+    if sustain_s:
+        sus = time_kernel_sustained(fn, *args, duration_s=sustain_s, harness=harness)
+        print(f"    sustained {sus.window_seconds:.1f}s window: {sus.seconds * 1e3:.2f} "
+              f"ms/launch over {sus.launches} launches (min-of-windows "
+              f"{timing.seconds * 1e3:.2f} ms, drift {sus.drift_pct:+.1f}%)")
+        extra = {"sustained_ms": sus.seconds * 1e3, "sustain_launches": sus.launches,
+                 "sustain_window_s": sus.window_seconds,
+                 "sustain_drift_pct": sus.drift_pct}
     report(name, timing.seconds, gflops, gbytes, mvis, seconds_std=timing.seconds_std,
            roofline=roofline)
     report_csv(name, device_name(), timing.seconds, gflops, gbytes, mvis,
                output_path=harness.output_path, seconds_std=timing.seconds_std,
-               roofline=roofline)
+               extra=extra, roofline=roofline)
     return timing.seconds
 
 
@@ -456,7 +471,7 @@ def cmd_pipeline(args) -> int:
 def cmd_run(args) -> int:
     if args.mode == "perf":
         _perf_one(args.workload, args.version, args.w_rank, device=args.device,
-                  name_suffix=args.suffix, w_obs=args.w_obs)
+                  name_suffix=args.suffix, w_obs=args.w_obs, sustain_s=args.sustain)
         return 0
     return 0 if _check_one(args.workload, args.version, args.device).passed else 1
 
@@ -544,6 +559,11 @@ def main(argv=None) -> int:
                             "CSV suffixed _wobs)")
     p_run.add_argument("--suffix", default="",
                        help="perf: extra CSV/report name suffix (e.g. _lofar4096)")
+    p_run.add_argument("--sustain", type=float, default=None, metavar="S",
+                       help="perf: also run a sustained ~S-second launch window (the "
+                            "reference's energy-loop semantics, without the power read) "
+                            "and record sustained ms/launch, launches, window and drift "
+                            "in the CSV")
     p_run.set_defaults(fn=cmd_run)
 
     p_sweep = sub.add_parser("sweep", help="run many kernels (run_perf_cuda.sh counterpart)")

@@ -149,7 +149,7 @@ def _resolve(workload: str, version: str, params: IDGParams,
             raise ValueError(
                 f"{workload} {version}: the observation's w range puts |mu*n| "
                 f"beyond rank-{MAX_W_RANK} Taylor accuracy; use a direct "
-                "full-phase kernel (cuda_v1)"
+                "full-phase kernel (cuda_v1 / torch_v2)"
             )
         default = inspect.signature(entry.fn).parameters["w_rank"].default
         return version, (need if need > default else None)
@@ -162,7 +162,7 @@ def _resolve(workload: str, version: str, params: IDGParams,
                 "specialization but the observation's w range needs "
                 + (f"Taylor rank {need}; no fallback is registered — " if need is not None
                    else f"more than rank-{MAX_W_RANK} Taylor accuracy; ")
-                + "use a direct full-phase kernel (cuda_v1)"
+                + "use a direct full-phase kernel (cuda_v1 / torch_v2)"
             )
         warnings.warn(
             f"{workload} {version} is a rank-{entry.fixed_w_rank} w-free "

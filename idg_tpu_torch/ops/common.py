@@ -80,6 +80,35 @@ def phase_offset_parts(params: IDGParams, metadata: Metadata):
     return qx.to(torch.float32) * scale, qy.to(torch.float32) * scale
 
 
+def phase_offset_exact(params: IDGParams, metadata):
+    """Subgrid-constant phase offset u_off·l + v_off·m + w_off·n, f32[S, N, N]
+    (y, x), for the full-phase formulations (idg_tpu/ops/common.py:46-68):
+    its u/v part from ONE integer remainder (ix·span_x + iy·span_y) mod 2N,
+    then + w_off·n, un-reduced (reducing w_off before multiplying by the
+    non-integer n would shift the phase by 2πk·n). `metadata` is anything
+    with coord_x, coord_y and coord_z tensors: a torch Metadata, or a
+    Staged. The sum of the per-axis parts (`phase_offset_parts`) is the
+    same angle mod 2π with other float32 roundings."""
+    N, G = params.subgrid_size, params.grid_size
+    ix = metadata.coord_x.to(torch.int64) + (N // 2 - G // 2)
+    iy = metadata.coord_y.to(torch.int64) + (N // 2 - G // 2)
+    span = 2 * torch.arange(N, dtype=torch.int64, device=ix.device) - (N - 1)
+    q = ix[:, None, None] * span[None, None, :] + iy[:, None, None] * span[None, :, None]
+    po = torch.remainder(q, 2 * N).to(torch.float32) * np.float32(math.pi / N)
+    if params.w_step != 0.0:
+        _, _, n = lmn_grids(N, params.image_size, ix.device)
+        po = po + w_offset_scalar(params, metadata)[:, None, None] * n
+    return po
+
+
+def phase_index(uvw: torch.Tensor, l: torch.Tensor, m: torch.Tensor, n: torch.Tensor):
+    """phase_index[..., T, N, N] = u·l + v·m + w·n from uvw[..., T, 3]
+    (gridder_reference.cpp:61; idg_tpu/ops/common.py:102-109)."""
+    return (uvw[..., 0, None, None] * l
+            + uvw[..., 1, None, None] * m[:, None]
+            + uvw[..., 2, None, None] * n)
+
+
 def w_offset_scalar(params: IDGParams, metadata: Metadata):
     """Per-subgrid w offset 2π·w_step·(z+0.5) (gridder_reference.cpp:38),
     f32[S]. Zero at the reference's compile-time W_STEP=0."""
@@ -134,6 +163,9 @@ class Staged:
     aterm_index: torch.Tensor    # i32[S]
     station1: torch.Tensor       # i32[S]
     station2: torch.Tensor       # i32[S]
+    coord_x: torch.Tensor        # i32[S] (the full-phase formulations' `phase_offset_exact`)
+    coord_y: torch.Tensor        # i32[S]
+    coord_z: torch.Tensor        # i32[S]
 
     @property
     def device(self) -> torch.device:
@@ -212,13 +244,16 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
         aterm_index=tmd.aterm_index,
         station1=tmd.station1,
         station2=tmd.station2,
+        coord_x=tmd.coord_x,
+        coord_y=tmd.coord_y,
+        coord_z=tmd.coord_z,
     )
 
 
 def slice_staged(stg: Staged, lo: int, hi: int) -> Staged:
     """The subgrids [lo, hi) of a staging (shared planes pass through)."""
     per_subgrid = ("uvw", "vis", "mu", "w_off", "po_x", "po_y",
-                   "aterm_index", "station1", "station2")
+                   "aterm_index", "station1", "station2", "coord_x", "coord_y", "coord_z")
     return dataclasses.replace(stg, **{
         name: getattr(stg, name)[lo:hi].contiguous()
         for name in per_subgrid if getattr(stg, name) is not None

@@ -39,6 +39,15 @@ def jones_degridder(pix: torch.Tensor, a1: torch.Tensor, a2: torch.Tensor):
     return (j1 @ p @ j2.conj().transpose(-1, -2)).reshape(pix.shape)
 
 
+def prepare_degridder(stg: Staged, lo: int, hi: int, subgrids: torch.Tensor) -> torch.Tensor:
+    """The taper and A1·P·A2ᴴ on the subgrids c64[s, P, N, N] of subgrids
+    [lo, hi); returns the pixels c64[s, N(y), N(x), P]
+    (idg_tpu/ops/common.py:prepare_degridder_pixels)."""
+    a1, a2 = _station_jones(stg, lo, hi)
+    pix = subgrids.permute(0, 2, 3, 1) * stg.sph[None, :, :, None]
+    return jones_degridder(pix, a1, a2)
+
+
 def degridder_plain(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
                     w_rank: int = DEFAULT_W_RANK):
     """The kernel's function in complex64 torch ops, chunked over subgrids:
@@ -53,9 +62,7 @@ def degridder_plain(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
     powers = n_powers(stg.n, w_rank)
     for lo in range(0, S, PLAIN_CHUNK):
         hi = min(lo + PLAIN_CHUNK, S)
-        a1, a2 = _station_jones(stg, lo, hi)
-        pix = subgrids[lo:hi].permute(0, 2, 3, 1) * stg.sph[None, :, :, None]
-        pix = jones_degridder(pix, a1, a2)                           # [s, y, x, p]
+        pix = prepare_degridder(stg, lo, hi, subgrids[lo:hi])       # [s, y, x, p]
         phx, phy, mu = axis_phasors(stg, lo, hi)
         vis = torch.zeros((hi - lo, T * C, P), dtype=torch.complex64, device=stg.device)
         for r, coef in enumerate(taylor_coefficients(mu, w_rank)):

@@ -26,12 +26,11 @@ from ...config import IDGParams
 from ..common import Staged
 from ..registry import register
 from . import build
-from .degridder import jones_degridder
+from .degridder import prepare_degridder
 from .gridder import (
     PLAIN_CHUNK,
     _check_staged,
     _check_tensor,
-    _station_jones,
     check_staging,
     full_fp32_matmuls,
     ptr,
@@ -56,9 +55,7 @@ def degridder_direct_plain(params: IDGParams, stg: Staged, subgrids: torch.Tenso
     out = torch.empty((S, T, C, P), dtype=torch.complex64, device=stg.device)
     for lo in range(0, S, PLAIN_CHUNK):
         hi = min(lo + PLAIN_CHUNK, S)
-        a1, a2 = _station_jones(stg, lo, hi)
-        pix = subgrids[lo:hi].permute(0, 2, 3, 1) * stg.sph[None, :, :, None]
-        pix = jones_degridder(pix, a1, a2).reshape(hi - lo, N * N, P)
+        pix = prepare_degridder(stg, lo, hi, subgrids[lo:hi]).reshape(hi - lo, N * N, P)
         pi, po = direct_geometry(stg, lo, hi)                       # [s,T,NN], [s,1,NN]
         if recurrence:
             d = expi(pi * channel_step(k))

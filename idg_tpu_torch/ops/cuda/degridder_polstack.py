@@ -27,13 +27,12 @@ from ..common import Staged, n_powers
 from ..precision import degridder_precisions, dot_mixed, rank_mode
 from ..registry import register
 from . import build
-from .degridder import jones_degridder
+from .degridder import prepare_degridder
 from .gridder import (
     DEFAULT_W_RANK,
     PLAIN_CHUNK,
     _check_staged,
     _check_tensor,
-    _station_jones,
     check_staging,
     full_fp32_matmuls,
     ptr,
@@ -59,9 +58,7 @@ def degridder_polstack_plain(params: IDGParams, stg: Staged, subgrids: torch.Ten
     for lo in range(0, S, PLAIN_CHUNK):
         hi = min(lo + PLAIN_CHUNK, S)
         s = hi - lo
-        a1, a2 = _station_jones(stg, lo, hi)
-        pix = subgrids[lo:hi].permute(0, 2, 3, 1) * stg.sph[None, :, :, None]
-        b = jones_degridder(pix, a1, a2).permute(0, 3, 1, 2)           # [s, P, N(y), N(x)]
+        b = prepare_degridder(stg, lo, hi, subgrids[lo:hi]).permute(0, 3, 1, 2)  # [s,P,y,x]
         phx, phy, mu = separable_phasors(stg, lo, hi, True)             # [s, V, N], μ [s, V]
         phx = phx.transpose(1, 2)                                       # [s, N(x), V]
         rhs = torch.cat([torch.cat([phx.real, -phx.imag], dim=2),

@@ -29,13 +29,12 @@ from ..common import Staged, n_powers
 from ..precision import dot_mixed, rank_mode
 from ..registry import register
 from . import build
-from .degridder import jones_degridder
+from .degridder import prepare_degridder
 from .gridder import (
     DEFAULT_W_RANK,
     PLAIN_CHUNK,
     _check_staged,
     _check_tensor,
-    _station_jones,
     check_staging,
     full_fp32_matmuls,
     ptr,
@@ -60,9 +59,7 @@ def degridder_separable_plain(params: IDGParams, stg: Staged, subgrids: torch.Te
     for lo in range(0, S, PLAIN_CHUNK):
         hi = min(lo + PLAIN_CHUNK, S)
         s = hi - lo
-        a1, a2 = _station_jones(stg, lo, hi)
-        pix = subgrids[lo:hi].permute(0, 2, 3, 1) * stg.sph[None, :, :, None]
-        b = jones_degridder(pix, a1, a2).transpose(2, 3).reshape(s, N, NP)
+        b = prepare_degridder(stg, lo, hi, subgrids[lo:hi]).transpose(2, 3).reshape(s, N, NP)
         phx, phy, mu = separable_phasors(stg, lo, hi, recurrence)
         V = mu.shape[1]
         phy2 = torch.cat([phy.real, phy.imag], dim=1).transpose(1, 2)   # [s, N(y), 2V]

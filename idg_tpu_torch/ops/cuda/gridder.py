@@ -72,6 +72,15 @@ def _station_jones(stg: Staged, lo: int, hi: int):
     return a1, a2
 
 
+def finish_gridder(stg: Staged, lo: int, hi: int, pix: torch.Tensor) -> torch.Tensor:
+    """Jones A1ᴴ·P·A2 and the taper on the accumulated pixels c64[s, N(y),
+    N(x), P] of subgrids [lo, hi); returns them pol-major, c64[s, P, N, N]
+    (idg_tpu/ops/common.py:finish_gridder)."""
+    a1, a2 = _station_jones(stg, lo, hi)
+    pix = jones_gridder(pix, a1, a2) * stg.sph[None, :, :, None]
+    return pix.permute(0, 3, 1, 2)
+
+
 def gridder_plain(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):
     """The kernel's function in complex64 torch ops, chunked over subgrids:
     per rank r, W[v,y,p] = Φy ⊛ (vis·(iμ)^r/r!) contracted with Φx over v,
@@ -90,9 +99,7 @@ def gridder_plain(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):
             w = phy[:, :, :, None] * (vis * coef[:, :, None])[:, :, None, :]  # [s,V,y,p]
             term = torch.einsum("svx,svyp->syxp", phx, w)
             pix = pix + term * powers[r][None, :, :, None]
-        a1, a2 = _station_jones(stg, lo, hi)
-        pix = jones_gridder(pix, a1, a2) * stg.sph[None, :, :, None]
-        out[lo:hi] = pix.permute(0, 3, 1, 2)
+        out[lo:hi] = finish_gridder(stg, lo, hi, pix)
     return out
 
 

@@ -32,10 +32,9 @@ from . import build
 from .gridder import (
     PLAIN_CHUNK,
     _check_staged,
-    _station_jones,
     check_staging,
+    finish_gridder,
     full_fp32_matmuls,
-    jones_gridder,
     ptr,
 )
 
@@ -111,9 +110,7 @@ def gridder_direct_plain(params: IDGParams, stg: Staged, recurrence: bool):
         else:
             ph = expi(gridder_phase(pi[:, :, None], k[:, None], po[:, :, None]))  # [s,T,C,NN]
             pix = torch.einsum("stcp,stcq->sqp", vis, ph)
-        a1, a2 = _station_jones(stg, lo, hi)
-        pix = jones_gridder(pix.reshape(hi - lo, N, N, P), a1, a2) * stg.sph[None, :, :, None]
-        out[lo:hi] = pix.permute(0, 3, 1, 2)
+        out[lo:hi] = finish_gridder(stg, lo, hi, pix.reshape(hi - lo, N, N, P))
     return out
 
 

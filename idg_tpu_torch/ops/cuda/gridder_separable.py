@@ -42,11 +42,10 @@ from .gridder import (
     DEFAULT_W_RANK,
     PLAIN_CHUNK,
     _check_staged,
-    _station_jones,
     axis_phasors,
     check_staging,
+    finish_gridder,
     full_fp32_matmuls,
-    jones_gridder,
     ptr,
     taylor_coefficients,
 )
@@ -134,9 +133,7 @@ def gridder_separable_plain(params: IDGParams, stg: Staged, w_rank: int, precisi
             w = phx[:, :, None, :] * (vis * coef[:, :, None])[:, :, :, None]  # [s,V,p,x]
             term = packed_product(phy, w.reshape(hi - lo, -1, P * N), rank_mode(precisions, r))
             pix = pix + term.reshape(hi - lo, N, P, N) * powers[r][None, :, None, :]
-        a1, a2 = _station_jones(stg, lo, hi)
-        pix = jones_gridder(pix.transpose(2, 3), a1, a2) * stg.sph[None, :, :, None]
-        out[lo:hi] = pix.permute(0, 3, 1, 2)
+        out[lo:hi] = finish_gridder(stg, lo, hi, pix.transpose(2, 3))
     return out
 
 

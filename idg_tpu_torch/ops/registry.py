@@ -1,8 +1,8 @@
 """Kernel registry: (workload, version) → callable.
 
 The counterpart of ``idg_tpu/ops/registry.py``: every kernel registers under
-a workload ("gridder"/"degridder") and a version string ("cuda_v6", ...),
-with a one-line description naming its JAX counterpart.
+a workload ("gridder"/"degridder") and a version string ("cuda_v6",
+"torch_v2", ...), with a one-line description naming its JAX counterpart.
 
 Kernel contract (the 13-arg launch ABI of app/CUDA/util.cpp:233-237), on a
 staging from ``ops.common.stage`` that lives on the device the kernel runs on:
@@ -31,7 +31,7 @@ class KernelEntry:
     version: str
     fn: Callable
     description: str
-    family: str  # "cuda"
+    family: str  # "cuda" (hand-written kernels) or "torch" (the compiler ladder)
     # Channel-recurrence kernels advance the phasor by a single per-channel
     # delta and are only correct when the wavenumber spacing is uniform
     # (gridder_v8.cu:135-186). `uniform_channels` marks them; `fallback`
@@ -82,4 +82,4 @@ def list_kernels(workload: str | None = None):
 
 def _ensure_loaded():
     """Registration is a side effect of importing the kernel modules."""
-    from . import cuda  # noqa: F401
+    from . import cuda, torch_ladder  # noqa: F401

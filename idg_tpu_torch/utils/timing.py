@@ -8,11 +8,18 @@ load) and the warm-ups are excluded, then NR_WINDOWS windows of back-to-back
 launches are timed with CUDA events on the current stream, the iteration
 count calibrated so a window lasts at least MIN_WINDOW_S. The headline is
 the min over windows; mean and σ are kept as the noise bound.
+
+`time_kernel_sustained` is the counterpart of
+``idg_tpu/utils/timing.py:144-213``: launches back to back for a wall-clock
+window of some seconds, its device time taken in chunks, so that the
+per-chunk series shows drift (clocks, power, queue backpressure) that the
+min-of-windows headline hides by construction.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -39,6 +46,20 @@ class TimingResult:
         return float(w.std(ddof=1) / self.iterations) if w.size > 1 else 0.0
 
 
+def _device_seconds(fn: Callable, args: tuple, iters: int) -> float:
+    """Device seconds of `iters` back-to-back launches of `fn(*args)`,
+    bracketed by CUDA events on the current stream around the launches
+    only, then synchronized."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
 def time_kernel(
     fn: Callable, *args, harness: Optional[HarnessConfig] = None
 ) -> TimingResult:
@@ -55,27 +76,75 @@ def time_kernel(
         fn(*args)
     torch.cuda.synchronize()
 
-    def window(iters: int) -> float:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn(*args)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) * 1e-3
-
     iters = max(1, cfg.nr_iterations)
-    total = window(iters)
+    total = _device_seconds(fn, args, iters)
     while total < MIN_WINDOW_S and iters < MAX_ITERATIONS:
         iters = min(MAX_ITERATIONS,
                     max(iters * 2, int(iters * 1.2 * MIN_WINDOW_S / max(total, 1e-9))))
-        total = window(iters)
+        total = _device_seconds(fn, args, iters)
 
-    windows = [total] + [window(iters) for _ in range(max(0, cfg.nr_windows - 1))]
+    windows = [total] + [_device_seconds(fn, args, iters)
+                         for _ in range(max(0, cfg.nr_windows - 1))]
     return TimingResult(
         seconds=min(windows) / iters,
         iterations=iters,
         warmup_runs=cfg.nr_warm_up_runs,
         all_seconds=tuple(windows),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SustainedResult:
+    seconds: float         # sustained seconds per launch: device time over launches
+    launches: int          # launches inside the window
+    window_seconds: float  # wall time of the window
+    chunk_seconds: tuple   # per-launch device seconds of each chunk, in order
+
+    @property
+    def drift_pct(self) -> float:
+        """The last chunk's per-launch time against the first's, in percent:
+        positive when launches got slower as the window ran (clocks or
+        power throttling, queue backpressure)."""
+        c = self.chunk_seconds
+        if len(c) < 2 or c[0] <= 0:
+            return 0.0
+        return float(100.0 * (c[-1] - c[0]) / c[0])
+
+
+def time_kernel_sustained(
+    fn: Callable, *args, duration_s: float = 10.0,
+    harness: Optional[HarnessConfig] = None,
+) -> SustainedResult:
+    """A sustained launch window: `fn(*args)` back to back until the wall
+    clock passes `duration_s` (the reference's energy loop keeps its kernel
+    running ~10 s, app/CUDA/util.cpp:131-155; no power is read here, as
+    the JAX package reads none). The first launch and the warm-ups are
+    excluded; one more launch, timed alone, sizes the chunks at about
+    duration_s / 20 and at least 10 launches. Each chunk is bracketed by
+    CUDA events on the current stream around its launches only, and
+    synchronized once. So 2 + NR_WARM_UP_RUNS launches precede the window.
+    Raises when no card is visible."""
+    if duration_s <= 0:
+        raise ValueError(f"the sustained window needs a duration > 0 s, got {duration_s}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_kernel_sustained times the card, and no CUDA device is visible")
+    cfg = harness or HarnessConfig.from_env()
+
+    fn(*args)                      # build, load and first-touch excluded
+    for _ in range(cfg.nr_warm_up_runs):
+        fn(*args)
+    torch.cuda.synchronize()
+
+    estimate = max(_device_seconds(fn, args, 1), 1e-6)
+    iters = max(10, int(duration_s / 20.0 / estimate))
+    chunks = []
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < duration_s:
+        chunks.append(_device_seconds(fn, args, iters) / iters)
+    window = time.perf_counter() - t0
+    return SustainedResult(
+        seconds=sum(chunks) / len(chunks),   # the chunks are equal in launches
+        launches=iters * len(chunks),
+        window_seconds=window,
+        chunk_seconds=tuple(chunks),
     )

@@ -65,7 +65,7 @@ def test_cuda_device_without_card_fails_clearly():
 def test_port_imports_no_jax():
     code = ("import sys, idg_tpu_torch, idg_tpu_torch.cli, idg_tpu_torch.bench, "
             "idg_tpu_torch.ops.api, idg_tpu_torch.ops.registry, idg_tpu_torch.ops.grid, "
-            "idg_tpu_torch.ops.cuda; "
+            "idg_tpu_torch.ops.cuda, idg_tpu_torch.ops.torch_ladder, idg_tpu_torch.utils.timing; "
             "idg_tpu_torch.ops.registry.list_kernels(); "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'idg_tpu')); "

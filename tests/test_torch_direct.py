@@ -230,11 +230,13 @@ def test_beyond_rank_6_raises_and_names_cuda_v1(workload, small_params):
     tp, tobs = _port(small_params), from_numpy_observation(obs)
     with pytest.raises(ValueError, match="direct full-phase"):
         japi._resolve(workload, "pallas_v4", small_params, obs)
-    with pytest.raises(ValueError, match=r"rank-6 Taylor.*direct full-phase kernel \(cuda_v1\)"):
+    with pytest.raises(ValueError,
+                       match=r"rank-6 Taylor.*direct full-phase kernel \(cuda_v1 / torch_v2\)"):
         tapi._resolve(workload, TAKES_RANK[workload], tp, tobs)
     with pytest.raises(ValueError, match="w-free"):
         japi._resolve(workload, W_FREE[workload][3], small_params, obs)
-    with pytest.raises(ValueError, match=r"w-free.*direct full-phase kernel \(cuda_v1\)"):
+    with pytest.raises(ValueError,
+                       match=r"w-free.*direct full-phase kernel \(cuda_v1 / torch_v2\)"):
         tapi._resolve(workload, W_FREE[workload][0], tp, tobs)
 
 
@@ -351,7 +353,7 @@ def test_sweep_check_on_cpu_passes_every_version():
     versions = [(e.workload, e.version) for e in list_kernels()]
     for workload, version in versions:
         assert f"=== {workload} {version} (check) ===" in out.stdout
-    assert len(versions) == 15
+    assert len(versions) == 25   # the 15 cuda_* rungs and the ten torch_* of the ladder
     assert out.stdout.count(">>> Result PASSED") == len(versions)
 
 
