@@ -131,6 +131,20 @@ non-zero:
               scripts/validate_cuda.py's sections (every rung at w = 0 and
               w != 0, the grid stage, the fused pipelines), any row not
               PASSED raising; and the phase's seconds
+ 15. mesh     the multi-device layer (idg_tpu_torch/parallel/) at a world of
+              one on NCCL, on the default problem: (a) the staged rungs
+              sharded_gridder_staged (cuda_v6) and sharded_degridder_staged
+              (cuda_v7) against api.staged_runner unsharded; (b) the
+              per-rank range recipe (K1's fused form into K4, all_reduce)
+              against `pipeline --direction grid`'s grid, and the
+              reduce_scatter + all_gather pair into K5 and K2 against the
+              replicated path, with counted launches (K1, K2, K4, never K6);
+              each bit for bit, or within the 1e-5 gate with the difference
+              printed; (c) `scaling --mesh-sizes 1` of the four workloads
+              beside this run's single-device times, the gap being the
+              wrapper's; (d) parallel/parity.py's replicated all-reduce
+              pipeline on two gloo ranks sharing the card under torchrun
+              (parity only, no time); each part's seconds
 Phases 1-8 print their seconds under [time], as does phase 9's check sweep
 and the run as a whole. Then a JSON line of per-kernel results (each with its bound from
 idg_tpu_torch/utils/roofline.py: the larger of its bytes over 3.35 TB/s and
@@ -572,7 +586,8 @@ def pipeline_phase(rows, params=None, row_names=None):
     """Phase 7 (and its LOFAR-4096 run in phase 8): the `pipeline` command,
     each direction with counted launches, then against its --no-fuse form.
     The grid direction must take K4 (grid_add_cuda) and not K6. A kernel's
-    launches go to its JSON row, or to the row `row_names` gives for it."""
+    launches go to its JSON row, or to the row `row_names` gives for it.
+    Returns each direction's seconds per pass."""
     import torch
 
     from idg_tpu_torch import cli
@@ -586,6 +601,7 @@ def pipeline_phase(rows, params=None, row_names=None):
     absent = {"grid": {"grid_add_pieces_cuda"}, "degrid": set()}
     by_name = {row["name"]: row for row in rows}
     row_names = row_names or {}
+    seconds = {}
     for direction, names in path.items():
         from idg_tpu_torch.ops import cuda as kernels
 
@@ -622,8 +638,10 @@ def pipeline_phase(rows, params=None, row_names=None):
                           f"{'PASSED' if ok.passed else 'FAILED'}")
         if not ok.passed:
             raise RuntimeError(f"{res.name} disagrees with its --no-fuse composition")
+        seconds[direction] = res.seconds
         del res, ref
         torch.cuda.empty_cache()
+    return seconds
 
 
 def grid_add_phase(rows, timing, plain_timing):
@@ -1771,6 +1789,156 @@ def ladder_phase():
     phase("ladder", f"phase 14: {time.perf_counter() - t_start:.1f} s")
 
 
+def same_or_gated(name: str, got, want) -> None:
+    """Hold two results of one path bit for bit; where they differ, print
+    the max abs difference and hold them to the 1e-5 gate over max |want|
+    (check_error's metric as a normalized RMS)."""
+    import torch
+
+    from idg_tpu_torch.utils.compare import check_error
+
+    if torch.equal(got, want):
+        phase("mesh", f"{name}: equal bit for bit PASSED")
+        return
+    scale = float(want.abs().max())
+    res = check_error(got / scale, want / scale, verbose=False)
+    phase("mesh", f"{name}: not bit for bit, max abs difference "
+                  f"{float((got - want).abs().max()):.3e}, mean_error {res.mean_error:.3e} "
+                  f"over max |want| {scale:.3e} (gate {GATE:g}) "
+                  f"{'PASSED' if res.passed else 'FAILED'}")
+    if not res.passed:
+        raise RuntimeError(f"{name} disagrees past the gate")
+
+
+def mesh_phase(rows, single):
+    """Phase 15: the multi-device layer (idg_tpu_torch/parallel/) on the card.
+    (a) at a world of one (NCCL), on the default problem: the staged rungs
+    sharded_gridder_staged (cuda_v6) and sharded_degridder_staged (cuda_v7)
+    against api.staged_runner unsharded; (b) the grid pipelines: the
+    per-rank range recipe (K1's fused form into K4, then all_reduce) against
+    `pipeline --direction grid`'s recipe, and the reduce_scatter +
+    all_gather pair into K5 and K2 against the replicated path, with
+    counted launches (K1, K2 and K4 launch, K6 never); each bit for bit (or
+    within the 1e-5 gate, the difference printed); (c) `scaling
+    --mesh-sizes 1` for the four workloads beside the single-device times
+    of this run (`single`); (d) two gloo ranks on the one card:
+    parallel/parity.py's replicated all-reduce pipeline under torchrun
+    (parity only, no time)."""
+    import subprocess
+
+    import torch
+    import torch.distributed as dist
+
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.config import IDGParams
+    from idg_tpu_torch.data import initialize_subgrids, make_perf_observation
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.ops.api import _resolve, gridded_pipeline_parts, staged_runner
+    from idg_tpu_torch.ops.grid import sort_observation_blocks
+    from idg_tpu_torch.parallel import init_distributed, make_mesh
+    from idg_tpu_torch.parallel import sharded as psh
+    from idg_tpu_torch.utils.costs import workload_costs
+    from idg_tpu_torch.utils.printing import nvidia_smi_power_line
+
+    t_start = time.perf_counter()
+    dev = init_distributed(device="cuda")
+    mesh = make_mesh(1)
+    phase("mesh", f"world {dist.get_world_size()}, backend {dist.get_backend()}, "
+                  f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, device {dev}")
+    params = IDGParams.from_env()
+    g, n = params.grid_size, params.subgrid_size
+    obs = make_perf_observation(params)
+    subgrids = initialize_subgrids(params.nr_subgrids, params.nr_correlations, n)
+
+    # (a) the staged rungs against the unsharded staged runner
+    for workload, version in (("gridder", "cuda_v6"), ("degridder", "cuda_v7")):
+        version, w_rank = _resolve(workload, version, params, obs)
+        sub = subgrids if workload == "degridder" else None
+        stg, sub_loc = psh.shard_staged_inputs(params, obs, mesh, workload, sub, dev)
+        if workload == "gridder":
+            got = psh.sharded_gridder_staged(params, mesh, version, w_rank)(stg)
+        else:
+            got = psh.sharded_degridder_staged(params, mesh, version, w_rank)(stg, sub_loc)
+        del stg, sub_loc
+        fn, args = staged_runner(workload, version, params, obs, sub, w_rank, dev)
+        want = fn(*args)
+        del fn, args
+        same_or_gated(f"sharded_{workload}_staged ({version}) vs staged_runner", got, want)
+        del got, want
+        torch.cuda.empty_cache()
+    t_a = phase_done("mesh (a)", t_start)
+
+    # (b) the grid pipelines, counted launches
+    version, w_rank = _resolve("gridder", "cuda_v6", params, obs)
+    dversion, dw_rank = _resolve("degridder", "cuda_v7", params, obs)
+    sorted_obs, _ = sort_observation_blocks(obs, g, n)
+    pfn, pargs, gfn, _, _ = gridded_pipeline_parts(params, sorted_obs, version, w_rank,
+                                                   device=dev)
+    want = gfn(pfn(*pargs))
+    del pfn, pargs, gfn
+    local, _, plan = psh.shard_observation_block_sorted(params, obs, mesh, dev)
+    kernels.reset_launch_counts()
+    grid = psh.sharded_gridder_to_grid(params, mesh, version, w_rank=w_rank,
+                                       grid_method="ranges")(local, plan)
+    block = psh.sharded_gridder_to_grid(params, mesh, version, grid_sharded=True,
+                                        w_rank=w_rank, grid_method="ranges")(local, plan)
+    vis_gather = psh.sharded_grid_to_degridder_gather(params, mesh, dversion,
+                                                      w_rank=dw_rank)(local, block)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    vis_repl = psh.sharded_grid_to_degridder(params, mesh, dversion, w_rank=dw_rank)(local, grid)
+    same_or_gated("sharded_gridder_to_grid(ranges) vs pipeline --direction grid", grid, want)
+    same_or_gated("reduce_scatter row blocks vs the all-reduced grid", block, grid)
+    same_or_gated("all_gather + K5 + K2 vs the replicated path", vis_gather, vis_repl)
+    path = ("gridder_cuda_v6_pieces", "grid_add_cuda", "grid_extract_cuda", "degridder_cuda_v7")
+    launched = {name: counts[name] for name in path}
+    phase("mesh", f"launches of the sharded grid pipelines: {launched}, "
+                  f"grid_add_pieces_cuda {counts['grid_add_pieces_cuda']}")
+    if not all(launched.values()) or counts["grid_add_pieces_cuda"]:
+        raise RuntimeError(f"the sharded grid pipelines took {counts}, not K1, K4, K5 and K2")
+    by_name = {row["name"]: row for row in rows}
+    for name, count in launched.items():
+        by_name[name]["launches"] += count
+    for name, fused in K3_FORMS:   # K3 launches with its fused form
+        if name in by_name:
+            by_name[name]["launches"] += counts[fused]
+    del want, local, plan, grid, block, vis_gather, vis_repl, obs, subgrids, sorted_obs
+    torch.cuda.empty_cache()
+    t_b = phase_done("mesh (b)", t_a)
+
+    # (c) scaling at mesh 1 beside the single-device times of this run
+    smi = nvidia_smi_power_line()
+    _, _, mvis = workload_costs(params)
+    for workload, method in (("gridder", "scatter"), ("degridder", "scatter"),
+                             ("pipeline", "ranges"), ("pipeline-degrid", "scatter")):
+        ((_, s),) = cli._scaling(workload, mesh_sizes=[1], grid_method=method)
+        phase("mesh", f"scaling {workload} (grid method {method}) mesh 1: {s * 1e3:.3f} ms/pass, "
+                      f"{mvis / s:.2f} MVis/s; single-device {single[workload] * 1e3:.3f} ms "
+                      f"({mvis / single[workload]:.2f} MVis/s), wrapper "
+                      f"{(s - single[workload]) * 1e3:+.3f} ms [{smi}]")
+        torch.cuda.empty_cache()
+    t_c = phase_done("mesh (c)", t_b)
+
+    # (d) two gloo ranks on the one card: the replicated all-reduce pipeline
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(key, None)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=2",
+         "-m", "idg_tpu_torch.parallel.parity", "--device", "cuda", "--backend", "gloo",
+         "--checks", "replicated"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    for line in out.stdout.splitlines():
+        if line.startswith("[parity"):
+            phase("mesh", line)
+    if out.returncode != 0 or out.stdout.count("all checks PASSED") != 2:
+        raise RuntimeError(f"two gloo ranks on the card: exit {out.returncode}\n"
+                           f"{out.stdout[-3000:]}\n{out.stderr[-6000:]}")
+    phase("mesh", "two gloo ranks on the card (replicated all-reduce pipeline): PASSED")
+    phase_done("mesh (d)", t_c)
+    dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -1897,7 +2065,7 @@ def main() -> int:
     t_phase = phase_done("phase 6", t_phase)
 
     # 7. the pipelines through the CLI, counted launches
-    pipeline_phase(rows)
+    pipeline_seconds = pipeline_phase(rows)
     t_phase = phase_done("phase 7", t_phase)
 
     # 8. the grid-add kernels, the `grid` command and LOFAR-4096
@@ -1921,6 +2089,14 @@ def main() -> int:
 
     # 14. the compiler ladder, the sustained window of K1 and K2, the validation sweep
     ladder_phase()
+
+    # 15. the multi-device layer at a world of one, and two gloo ranks on the card
+    t_phase = time.perf_counter()
+    mesh_phase(rows, {"gridder": seconds["gridder_cuda_v6"],
+                      "degridder": seconds["degridder_cuda_v7"],
+                      "pipeline": pipeline_seconds["grid"],
+                      "pipeline-degrid": pipeline_seconds["degrid"]})
+    phase_done("phase 15", t_phase)
     phase_done("all phases", t_run)
 
     print(json.dumps({"kernels": rows}))

@@ -20,6 +20,9 @@ mode and device, and honors the same env vars.
   python -m idg_tpu_torch pipeline --no-fuse --version cuda_v1
   python -m idg_tpu_torch grid --method pallas
   GRID_SIZE=16384 python -m idg_tpu_torch grid --direction to-subgrids
+  python -m idg_tpu_torch run --workload gridder --mesh 1
+  python -m idg_tpu_torch scaling --workload pipeline --grid-method ranges --mesh-sizes 1
+  torchrun --standalone --nproc-per-node 2 -m idg_tpu_torch scaling --mesh-sizes 1,2 --device cpu
   python -m idg_tpu_torch list
   python -m idg_tpu_torch info
 """
@@ -63,7 +66,8 @@ def _perf_problem(workload: str, version: str, w_rank: int | None = None, params
 
 def _perf_one(workload: str, version: str, w_rank: int | None = None,
               params=None, device: str = "cuda", name_suffix: str = "",
-              w_obs: bool = False, sustain_s: float | None = None) -> float:
+              w_obs: bool = False, sustain_s: float | None = None,
+              mesh_size: int | None = None) -> float:
     """Performance mode (p_run_gridder_ semantics, app/CUDA/util.cpp:172-249):
     stage once, time bare kernel launches, print and write the CSV, named as
     `_perf_problem` says, with the roofline % of the resolved rung's unit on
@@ -71,7 +75,15 @@ def _perf_one(workload: str, version: str, w_rank: int | None = None,
     sustained window of about that many seconds (`time_kernel_sustained`,
     idg_tpu/cli.py:179-197): its console line, and the CSV rows
     sustained_ms, sustain_launches, sustain_window_s and sustain_drift_pct.
-    Returns the min-of-windows seconds per launch."""
+
+    With `mesh_size`, the subgrid batch shards over the first mesh_size
+    ranks of the world (`parallel.init_distributed`: a launcher's, else a
+    world of one): each rank stages its rows once and times its launches
+    (parallel/sharded.py:shard_staged_inputs, sharded_*_staged), the ranks
+    agreeing on each window (the slowest rank's time), and rank 0 reports
+    with a `_mesh{N}` suffix and no roofline (the rate is the mesh's,
+    idg_tpu/cli.py:98-172). The guards resolve once, on the global
+    observation. Returns the min-of-windows seconds per launch."""
     from .config import HarnessConfig
     from .ops.api import resolve_device, staged_runner
     from .utils.costs import workload_costs
@@ -84,30 +96,61 @@ def _perf_one(workload: str, version: str, w_rank: int | None = None,
     if dev.type != "cuda":
         raise ValueError("perf mode times the card; it needs --device cuda")
     harness = HarnessConfig.from_env()
-    print_device_info()
+    lead = True
+    if mesh_size:
+        import torch.distributed as dist
+
+        from .parallel import init_distributed, make_mesh
+        from .parallel.distributed import flat_axis_index, mesh_max
+        from .parallel.sharded import (shard_staged_inputs, sharded_degridder_staged,
+                                       sharded_gridder_staged)
+
+        dev = init_distributed(device=dev)
+        lead = dist.get_rank() == 0
+        name_suffix = f"_mesh{mesh_size}{name_suffix}"
+    if lead:
+        print_device_info()
     params, obs, subgrids, version, w_rank, name = _perf_problem(
         workload, version, w_rank, params, name_suffix, w_obs)
-    print_parameters(params)
-    fn, args = staged_runner(workload, version, params, obs, subgrids,
-                             w_rank=w_rank, device=dev)
-    timing = time_kernel(fn, *args, harness=harness)
+    if lead:
+        print_parameters(params)
     gflops, gbytes, mvis = workload_costs(params)
-    roofline = roofline_fraction(gflops / timing.seconds, gflops, gbytes, device_name(),
-                                 workload, version)
+    if mesh_size:
+        mesh = make_mesh(mesh_size, device_type=dev.type)
+        if flat_axis_index(mesh) is None:   # outside the first mesh_size ranks
+            dist.barrier()
+            return 0.0
+        stg, sub = shard_staged_inputs(params, obs, mesh, workload, subgrids, dev)
+        if workload == "gridder":
+            fn, args = sharded_gridder_staged(params, mesh, version, w_rank), (stg,)
+        else:
+            fn, args = sharded_degridder_staged(params, mesh, version, w_rank), (stg, sub)
+        timing = time_kernel(fn, *args, harness=harness, agree=mesh_max(mesh, dev))
+        roofline = None
+    else:
+        fn, args = staged_runner(workload, version, params, obs, subgrids,
+                                 w_rank=w_rank, device=dev)
+        timing = time_kernel(fn, *args, harness=harness)
+        roofline = roofline_fraction(gflops / timing.seconds, gflops, gbytes, device_name(),
+                                     workload, version)
     extra = None
     if sustain_s:
         sus = time_kernel_sustained(fn, *args, duration_s=sustain_s, harness=harness)
-        print(f"    sustained {sus.window_seconds:.1f}s window: {sus.seconds * 1e3:.2f} "
-              f"ms/launch over {sus.launches} launches (min-of-windows "
-              f"{timing.seconds * 1e3:.2f} ms, drift {sus.drift_pct:+.1f}%)")
+        if lead:
+            print(f"    sustained {sus.window_seconds:.1f}s window: {sus.seconds * 1e3:.2f} "
+                  f"ms/launch over {sus.launches} launches (min-of-windows "
+                  f"{timing.seconds * 1e3:.2f} ms, drift {sus.drift_pct:+.1f}%)")
         extra = {"sustained_ms": sus.seconds * 1e3, "sustain_launches": sus.launches,
                  "sustain_window_s": sus.window_seconds,
                  "sustain_drift_pct": sus.drift_pct}
-    report(name, timing.seconds, gflops, gbytes, mvis, seconds_std=timing.seconds_std,
-           roofline=roofline)
-    report_csv(name, device_name(), timing.seconds, gflops, gbytes, mvis,
-               output_path=harness.output_path, seconds_std=timing.seconds_std,
-               extra=extra, roofline=roofline)
+    if lead:
+        report(name, timing.seconds, gflops, gbytes, mvis, seconds_std=timing.seconds_std,
+               roofline=roofline)
+        report_csv(name, device_name(), timing.seconds, gflops, gbytes, mvis,
+                   output_path=harness.output_path, seconds_std=timing.seconds_std,
+                   extra=extra, roofline=roofline)
+    if mesh_size:
+        dist.barrier()
     return timing.seconds
 
 
@@ -468,11 +511,19 @@ def cmd_pipeline(args) -> int:
     return 0
 
 
+MESH_CHECK_WARNING = ("warning: --mesh is a perf-mode option; check mode validates the "
+                      "single-device kernel (the sharded paths are validated by "
+                      "idg_tpu_torch/parallel/parity.py and tests/test_torch_parallel.py)")
+
+
 def cmd_run(args) -> int:
     if args.mode == "perf":
         _perf_one(args.workload, args.version, args.w_rank, device=args.device,
-                  name_suffix=args.suffix, w_obs=args.w_obs, sustain_s=args.sustain)
+                  name_suffix=args.suffix, w_obs=args.w_obs, sustain_s=args.sustain,
+                  mesh_size=args.mesh)
         return 0
+    if args.mesh:
+        print(MESH_CHECK_WARNING)
     return 0 if _check_one(args.workload, args.version, args.device).passed else 1
 
 
@@ -482,12 +533,15 @@ def cmd_sweep(args) -> int:
     shrinks the perf problem; `--fullsize` runs the reference perf defaults
     and suffixes the CSV names with `_fullsize`. A version that fails or
     errors is reported and the sweep goes on; the exit code is 1 if any
-    did. A missing card is no version's failure: it exits 2 before any."""
+    did. A missing card is no version's failure: it exits 2 before any.
+    `--mesh N` shards each perf run over N ranks (`_perf_one`)."""
     from .config import IDGParams
     from .ops.api import resolve_device
     from .ops.registry import list_kernels
 
     resolve_device(args.device)
+    if args.mesh and args.mode == "check":
+        print(MESH_CHECK_WARNING)
     params, suffix = None, ""
     if args.fullsize:
         params, suffix = IDGParams.from_env(), "_fullsize"
@@ -502,7 +556,7 @@ def cmd_sweep(args) -> int:
             try:
                 if args.mode == "perf":
                     _perf_one(workload, version, params=params, device=args.device,
-                              name_suffix=suffix)
+                              name_suffix=suffix, mesh_size=args.mesh)
                 elif not _check_one(workload, version, args.device).passed:
                     failed.append((workload, version))
             except Exception as exc:  # keep sweeping, report at the end
@@ -511,6 +565,144 @@ def cmd_sweep(args) -> int:
     if failed:
         print("FAILED:", ", ".join(f"{w}/{v}" for w, v in failed))
         return 1
+    return 0
+
+
+SCALING_WORKLOADS = ("gridder", "degridder", "pipeline", "pipeline-degrid")
+
+
+def _scaling_step(workload: str, params, obs, mesh, version: str, w_rank, dev,
+                  grid_sharded: bool = False, grid_method: str = "scatter", subgrids=None):
+    """(fn, args) of one mesh's pass of a `scaling` workload on this rank,
+    its inputs sharded and placed once (idg_tpu/cli.py:887-950)."""
+    import numpy as np
+    import torch
+
+    from .parallel import sharded as psh
+    from .parallel.distributed import distribute_subgrids
+
+    if workload == "pipeline" and grid_method == "ranges":
+        local, _, plan = psh.shard_observation_block_sorted(params, obs, mesh, dev)
+        fn = psh.sharded_gridder_to_grid(params, mesh, version, grid_sharded=grid_sharded,
+                                         w_rank=w_rank, grid_method="ranges")
+        return fn, (local, plan)
+    local, s_pad = psh.shard_observation(params, obs, mesh, dev)
+    if workload == "gridder":
+        return psh.sharded_gridder(params, mesh, version, w_rank), (local,)
+    if workload == "degridder":
+        sub = torch.as_tensor(distribute_subgrids(subgrids, mesh, s_pad), device=dev)
+        return psh.sharded_degridder(params, mesh, version, w_rank), (local, sub)
+    if workload == "pipeline":
+        return psh.sharded_gridder_to_grid(params, mesh, version, grid_sharded=grid_sharded,
+                                           w_rank=w_rank), (local,)
+    rng = np.random.default_rng(11)
+    g, p = params.grid_size, params.nr_correlations
+    grid = torch.complex(*(torch.as_tensor(rng.normal(size=(p, g, g)).astype(np.float32))
+                           for _ in range(2))).to(dev)
+    n_inner = mesh.size(mesh.ndim - 1)
+    if grid_sharded and g % n_inner == 0:
+        i, rows = mesh.get_local_rank(mesh.mesh_dim_names[-1]), g // n_inner
+        fn = psh.sharded_grid_to_degridder_gather(params, mesh, version, w_rank=w_rank)
+        return fn, (local, grid[:, i * rows:(i + 1) * rows].contiguous())
+    if grid_sharded:
+        print(f"  (grid {g} not divisible by {n_inner} rows; using the replicated grid)")
+    return psh.sharded_grid_to_degridder(params, mesh, version, w_rank=w_rank), (local, grid)
+
+
+def _scaling(workload: str = "gridder", version: str | None = None,
+             mesh_sizes=(1, 2, 4, 8), grid_sharded: bool = False,
+             grid_method: str = "scatter", distributed: bool = False,
+             device: str = "cuda", params=None) -> list:
+    """Strong scaling over mesh sizes (cmd_scaling semantics,
+    idg_tpu/cli.py:840-963): the GLOBAL problem stays fixed while the mesh
+    grows, so the efficiency is speedup / devices against the smallest mesh
+    measured. Workloads: gridder and degridder (subgrid-batch parallel, no
+    collective), pipeline (gridder, grid stage, all-reduce or, with
+    `grid_sharded`, reduce-scatter of row blocks; `grid_method` 'ranges'
+    runs each rank's block-sorted range recipe, K1's fused form into K4)
+    and pipeline-degrid (extraction + degridder on a replicated grid, or
+    with `grid_sharded` an all-gather of its row blocks first).
+
+    The world is the launcher's (`torchrun`), else one rank; `distributed`
+    insists on the launcher's. A mesh of n takes the first n ranks, the
+    others wait at a barrier. Each rank times its own launches
+    (utils/timing.py:time_kernel), the ranks agreeing on every window, so
+    the time is the slowest rank's. CPU ranks (gloo) run each pass once for
+    parity and measure no time: their rows say "not measured". Rank 0
+    prints. Returns [(devices, seconds or None)] on every rank."""
+    import os
+
+    import torch.distributed as dist
+
+    from .config import HarnessConfig, IDGParams
+    from .data import initialize_subgrids, make_perf_observation
+    from .ops.api import _resolve
+    from .parallel import init_distributed, make_mesh
+    from .parallel.distributed import flat_axis_index, mesh_max
+    from .utils.costs import workload_costs
+    from .utils.printing import nvidia_smi_power_line
+    from .utils.timing import time_kernel
+
+    if workload not in SCALING_WORKLOADS:
+        raise ValueError(f"scaling workload must be one of {SCALING_WORKLOADS}, got {workload!r}")
+    if distributed and "WORLD_SIZE" not in os.environ:
+        raise ValueError("--distributed expects a launcher's world (torchrun sets RANK, "
+                         "WORLD_SIZE, MASTER_ADDR/PORT); without it the world is one rank")
+    dev = init_distributed(device=device)
+    world, lead = dist.get_world_size(), dist.get_rank() == 0
+    params = params or IDGParams.from_env()
+    harness = HarnessConfig.from_env()
+    obs = make_perf_observation(params)
+    kernel_workload = "degridder" if workload in ("degridder", "pipeline-degrid") else "gridder"
+    version = version or ("cuda_v7" if kernel_workload == "degridder" else "cuda_v6")
+    rversion, w_rank = _resolve(kernel_workload, version, params, obs, None)
+    subgrids = None
+    if workload == "degridder":
+        subgrids = initialize_subgrids(params.nr_subgrids, params.nr_correlations,
+                                       params.subgrid_size)
+    _, _, mvis = workload_costs(params)
+    if lead:
+        card = nvidia_smi_power_line() if dev.type == "cuda" else "cpu ranks: parity only, no time"
+        print(f"workload={workload} version={rversion}"
+              + (f" (resolved from {version})" if rversion != version else "")
+              + f" world={world} backend={dist.get_backend()} [{card}]")
+        print(f"{'devices':>8s} {'ms':>12s} {'MVis/s':>12s} {'efficiency':>11s}")
+    rows, base = [], None
+    for n_dev in mesh_sizes:
+        if n_dev > world:
+            if lead:
+                print(f"{n_dev:>8d}  (skipped: the world has {world} ranks)")
+            continue
+        mesh = make_mesh(n_dev, device_type=dev.type)
+        seconds = std = None
+        if flat_axis_index(mesh) is not None:
+            fn, fargs = _scaling_step(workload, params, obs, mesh, rversion, w_rank, dev,
+                                      grid_sharded, grid_method, subgrids)
+            if dev.type == "cuda":
+                timing = time_kernel(fn, *fargs, harness=harness, agree=mesh_max(mesh, dev))
+                seconds, std = timing.seconds, timing.seconds_std
+            else:
+                fn(*fargs)
+            del fn, fargs
+        dist.barrier()
+        rows.append((n_dev, seconds))
+        if not lead:
+            continue
+        if seconds is None:
+            print(f"{n_dev:>8d} {'not measured':>12s} {'not measured':>12s} {'-':>11s}")
+            continue
+        rate = mvis / seconds
+        if base is None:
+            base = (rate, n_dev)   # the first MEASURED mesh, not mesh_sizes[0]
+        eff = rate / (base[0] * n_dev / base[1])
+        print(f"{n_dev:>8d} {seconds * 1e3:>12.3f} {rate:>12.2f} {eff:>10.1%}  "
+              f"(±{std * 1e3:.3f} ms)")
+    return rows
+
+
+def cmd_scaling(args) -> int:
+    _scaling(args.workload, args.version, [int(n) for n in args.mesh_sizes.split(",")],
+             args.grid_sharded, args.grid_method, args.distributed, args.device)
     return 0
 
 
@@ -564,6 +756,9 @@ def main(argv=None) -> int:
                             "reference's energy-loop semantics, without the power read) "
                             "and record sustained ms/launch, launches, window and drift "
                             "in the CSV")
+    p_run.add_argument("--mesh", type=int, default=None, metavar="N",
+                       help="perf: shard the subgrid batch over the first N ranks of the "
+                            "world (torchrun's, else a world of one); CSV suffixed _meshN")
     p_run.set_defaults(fn=cmd_run)
 
     p_sweep = sub.add_parser("sweep", help="run many kernels (run_perf_cuda.sh counterpart)")
@@ -577,6 +772,8 @@ def main(argv=None) -> int:
                          help="perf: reference perf defaults + _fullsize CSV suffix")
     p_sweep.add_argument("--device", default="cuda",
                          help="cuda, or cpu for check mode's plain PyTorch versions")
+    p_sweep.add_argument("--mesh", type=int, default=None, metavar="N",
+                         help="perf: shard each version over N ranks (as run --mesh)")
     p_sweep.set_defaults(fn=cmd_sweep)
 
     p_vadd = sub.add_parser("vadd", help="bandwidth smoke benchmark (on the card)")
@@ -616,6 +813,25 @@ def main(argv=None) -> int:
     p_grid.add_argument("--device", default="cuda", help="cuda (the grid command times the card)")
     p_grid.set_defaults(fn=cmd_grid)
 
+    p_scal = sub.add_parser(
+        "scaling", help="strong-scaling report: a fixed global problem over mesh sizes "
+                        "(under torchrun --nproc-per-node N; one rank without it)")
+    p_scal.add_argument("--workload", choices=list(SCALING_WORKLOADS), default="gridder")
+    p_scal.add_argument("--version", default=None,
+                        help="kernel version (default cuda_v6 gridder / cuda_v7 degridder)")
+    p_scal.add_argument("--mesh-sizes", default="1,2,4,8")
+    p_scal.add_argument("--grid-sharded", action="store_true",
+                        help="pipeline: reduce-scatter a row-sharded grid; pipeline-degrid: "
+                             "all-gather its row blocks")
+    p_scal.add_argument("--grid-method", choices=["scatter", "ranges"], default="scatter",
+                        help="pipeline grid stage: the periodic scatter, or each rank's "
+                             "block-sorted range recipe (fused gridder into K4)")
+    p_scal.add_argument("--distributed", action="store_true",
+                        help="require the launcher's multi-process world (torchrun)")
+    p_scal.add_argument("--device", default="cuda",
+                        help="cuda (NCCL, timed) or cpu (gloo ranks: parity only, no time)")
+    p_scal.set_defaults(fn=cmd_scaling)
+
     sub.add_parser("list", help="list registered kernels").set_defaults(fn=cmd_list)
     sub.add_parser("info", help="print device info").set_defaults(fn=cmd_info)
 
@@ -627,6 +843,11 @@ def main(argv=None) -> int:
     except DeviceUnavailable as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():   # the world of --mesh / scaling ends with the command
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

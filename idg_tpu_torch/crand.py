@@ -70,3 +70,15 @@ class CRand:
 
     def uniform_array(self, n: int) -> np.ndarray:
         return self.rand_array(n).astype(np.float64) / 2147483647.0
+
+
+def make_rng(seed: int = 0):
+    """The fastest glibc-rand stream here: the native one
+    (idg_tpu_torch.native, built with g++ at first use) where it builds, else
+    the pure-Python CRand above. Both draw the identical sequence
+    (tests/test_torch_native.py), as idg_tpu.crand.make_rng's do."""
+    from . import native
+
+    if native.available():
+        return native.NativeRand(seed)
+    return CRand(seed)

@@ -9,8 +9,10 @@
 //   vis[t,c,p]  = Σ_{y,x} pix'[y,x,p] · e^{i(pi[t,y,x]·k_c − po[y,x])}
 // with pi = u·l + v·m + w·n and po = po_x + po_y + w_off·n, JAX's phase.
 // kRecur steps the phasor over a group of kChanGroup channels by one complex
-// multiply with e^{i·pi·Δk}, Δk = k[1] − k[0], from an exact phasor at the
-// group's first channel (JAX's pallas_v2 starts once, at channel 0).
+// multiply with e^{i·pi·Δk}, Δk the uniform fit's step
+// (k[C], common.cuh), from an exact phasor at the group's first
+// channel (JAX's pallas_v2 starts once, at channel 0, and steps by
+// k[1] − k[0]).
 //
 // The sum is a skinny product per channel, vis[t, (p, re|im)] =
 // Φ[t, (pixel, re|im)] · X[(pixel, re|im), (p, re|im)], M = T, K = 2N²,
@@ -128,7 +130,7 @@ __global__ void __launch_bounds__(kThreads, 2) degridder_direct_kernel(
   const float* uvw_s = uvw + (size_t)s * T * 3;
   const int groups = (C + kChanGroup - 1) / kChanGroup;
   const int items = (T + 15) / 16 * groups;
-  const float dk = C > 1 ? k[1] - k[0] : 0.0f;
+  const float dk = k[C];   // the recurrence's channel step (common.cuh)
   // lane (g, t) reads B[(pixel, re), (p, ri)] and B[(pixel, im), (p, ri)],
   // p = g / 2, ri = g % 2: (x_re, −x_im) or (x_im, x_re)
   const int pol = g >> 1;

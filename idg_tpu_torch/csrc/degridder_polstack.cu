@@ -193,7 +193,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks)
   const int tid = threadIdx.x;
   const int V = T * C;
   const int nt = (T + kVT - 1) / kVT * C;
-  const float dk = C > 1 ? k[1] - k[0] : 0.0f;   // the recurrence's channel step
+  const float dk = k[C];   // the recurrence's channel step (common.cuh)
   const size_t nn = (size_t)N * N;
   const float2* sub_s = subgrids + (size_t)s * kPols * nn;
   const float* uvw_s = uvw + (size_t)s * T * 3;

@@ -175,7 +175,7 @@ __device__ __forceinline__ void degridder_sep(
   const int tid = threadIdx.x;
   const int V = T * C;
   const int nt = kRecur ? (T + kVT - 1) / kVT * C : (V + kVT - 1) / kVT;
-  const float dk = C > 1 ? k[1] - k[0] : 0.0f;   // the recurrence's channel step
+  const float dk = k[C];   // the recurrence's channel step (common.cuh)
   const size_t nn = (size_t)N * N;
   const float2* sub_s = subgrids + (size_t)s * kPols * nn;
   const float* uvw_s = uvw + (size_t)s * T * 3;

@@ -11,9 +11,10 @@
 // then the Jones correction A1ᴴ·P·A2 and the spheroidal taper. The phase is
 // JAX's, term for term: w_off·n rides in po (the separable kernels carry it
 // in μ instead). kRecur steps the phasor over the channels by one complex
-// multiply with e^{−i·pi·Δk}, Δk = k[1] − k[0], and restarts it exactly
-// every kChanGroup channels (JAX's pallas_v2 never restarts and drifts past
-// the 1e-5 gate at C = 256); it assumes uniform channel spacing (the API
+// multiply with e^{−i·pi·Δk}, Δk the uniform fit's step
+// (k[C], common.cuh), and restarts it exactly every kChanGroup
+// channels (JAX's pallas_v2 never restarts, steps by k[1] − k[0] and drifts
+// past the 1e-5 gate at C = 256); it assumes uniform channel spacing (the API
 // guard falls back to the full-phase form otherwise).
 //
 // The sum is a skinny product, out[pixel, (p, re|im)] = Φ[pixel, (v, re|im)]
@@ -126,7 +127,7 @@ __global__ void __launch_bounds__(kThreads, 2) gridder_direct_kernel(
   const float* uvw_s = uvw + (size_t)s * T * 3;
   const float2* vis_s = vis + (size_t)s * T * C * kPols;
   for (int c = tid; c < C; c += kThreads) s_k[c] = k[c];
-  const float dk = C > 1 ? k[1] - k[0] : 0.0f;
+  const float dk = k[C];   // the recurrence's channel step (common.cuh)
   const float woff = w_off[s];
   for (int q = tid; q < N * N; q += kThreads) {
     const int y = q / N, x = q % N;

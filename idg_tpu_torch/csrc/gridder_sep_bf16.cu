@@ -179,7 +179,7 @@ __device__ __forceinline__ void gridder_sep(
   const int tid = threadIdx.x;
   const int V = T * C;
   const int nt = kRecur ? (T + kKT - 1) / kKT * C : (V + kKT - 1) / kKT;
-  const float dk = C > 1 ? k[1] - k[0] : 0.0f;   // the recurrence's channel step
+  const float dk = k[C];   // the recurrence's channel step (common.cuh)
   const float* uvw_s = uvw + (size_t)s * T * 3;
   const float2* vis_s = vis + (size_t)s * V * kPols;
   const float* mu_s = mu + (size_t)s * V;

@@ -195,7 +195,10 @@ def _check_indices(params: IDGParams, obs: Observation) -> None:
 
 
 def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) -> Staged:
-    """Stage a host observation (numpy fields) on `device` for the kernels.
+    """Stage an observation on `device` for the kernels. Its metadata is
+    host numpy; its arrays are host numpy or tensors, those already on
+    `device` in their dtype taken without a copy (the sharded builders'
+    rank-local rows, parallel/sharded.py).
 
     Gathers the per-subgrid time windows (skipped when the layout is
     canonical), forms μ = w_off − w·k and the exact phase-offset parts.
@@ -211,11 +214,11 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
                                 device=device)
         for f in dataclasses.fields(Metadata)
     })
-    uvw_flat = torch.as_tensor(np.asarray(obs.uvw, np.float32), device=device).reshape(-1, 3)
+    uvw_flat = torch.as_tensor(obs.uvw, dtype=torch.float32, device=device).reshape(-1, 3)
     vis_flat = None
     if with_vis:
         vis_flat = torch.as_tensor(
-            np.asarray(obs.visibilities, np.complex64), device=device
+            obs.visibilities, dtype=torch.complex64, device=device
         ).reshape(-1, C, P)
     if canonical_time_offsets(md, T):
         uvw = uvw_flat.reshape(-1, T, 3)[:S]
@@ -223,7 +226,7 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
     else:
         uvw = gather_time(uvw_flat, tmd.time_offset, T)
         vis = gather_time(vis_flat, tmd.time_offset, T) if with_vis else None
-    k = torch.as_tensor(np.asarray(obs.wavenumbers, np.float32), device=device)
+    k = torch.as_tensor(obs.wavenumbers, dtype=torch.float32, device=device)
     w_off = w_offset_scalar(params, tmd)
     mu = w_off[:, None, None] - uvw[:, :, 2, None] * k[None, None, :]
     po_x, po_y = phase_offset_parts(params, tmd)
@@ -239,8 +242,8 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
         l=l,
         m=m,
         n=n.contiguous(),
-        sph=torch.as_tensor(np.asarray(obs.spheroidal, np.float32), device=device),
-        aterms=torch.as_tensor(np.asarray(obs.aterms, np.complex64), device=device),
+        sph=torch.as_tensor(obs.spheroidal, dtype=torch.float32, device=device),
+        aterms=torch.as_tensor(obs.aterms, dtype=torch.complex64, device=device),
         aterm_index=tmd.aterm_index,
         station1=tmd.station1,
         station2=tmd.station2,

@@ -35,7 +35,8 @@ from .gridder import (
     full_fp32_matmuls,
     ptr,
 )
-from .gridder_direct import channel_step, direct_geometry, expi, gridder_phase
+from .gridder_direct import (channel_step, direct_geometry, expi, gridder_phase,
+                             wavenumbers_and_step)
 
 CHANNEL_GROUP = 8   # channels per thread in K9a (kChanGroup in csrc/degridder_direct.cu)
 
@@ -91,9 +92,10 @@ def _degridder_direct(wrapper, params: IDGParams, stg: Staged, subgrids: torch.T
     if S == 0:
         return out
     lib = build.library()
+    k_dk = wavenumbers_and_step(stg.wavenumbers)
     with torch.cuda.device(device):
         rc = lib.idg_degridder_direct(
-            ptr(stg.uvw), ptr(stg.wavenumbers), ptr(stg.w_off), ptr(stg.po_x),
+            ptr(stg.uvw), ptr(k_dk), ptr(stg.w_off), ptr(stg.po_x),
             ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n), ptr(stg.sph),
             ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(subgrids), ptr(out),

@@ -38,6 +38,7 @@ from .gridder import (
     ptr,
     taylor_coefficients,
 )
+from .gridder_direct import wavenumbers_and_step
 from .gridder_separable import separable_phasors
 
 
@@ -105,9 +106,10 @@ def degridder_cuda_v6(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
     if S == 0:
         return out
     lib = build.library()
+    k_dk = wavenumbers_and_step(stg.wavenumbers)
     with torch.cuda.device(device):
         rc = lib.idg_degridder_polstack(
-            ptr(stg.uvw), ptr(stg.mu), ptr(stg.wavenumbers), ptr(stg.po_x),
+            ptr(stg.uvw), ptr(stg.mu), ptr(k_dk), ptr(stg.po_x),
             ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n), ptr(stg.sph),
             ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(subgrids), ptr(out),

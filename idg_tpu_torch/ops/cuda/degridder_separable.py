@@ -40,6 +40,7 @@ from .gridder import (
     ptr,
     taylor_coefficients,
 )
+from .gridder_direct import wavenumbers_and_step
 from .gridder_separable import VARIANTS, plain_precisions, separable_phasors
 
 
@@ -103,9 +104,10 @@ def _degridder_separable(wrapper, version: str, params: IDGParams, stg: Staged,
     if S == 0:
         return out
     lib = build.library()
+    k_dk = wavenumbers_and_step(stg.wavenumbers)
     with torch.cuda.device(device):
         rc = lib.idg_degridder_separable(
-            ptr(stg.uvw), ptr(stg.mu), ptr(stg.wavenumbers), ptr(stg.po_x),
+            ptr(stg.uvw), ptr(stg.mu), ptr(k_dk), ptr(stg.po_x),
             ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n), ptr(stg.sph),
             ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(subgrids), ptr(out),

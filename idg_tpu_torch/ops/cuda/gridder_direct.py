@@ -9,10 +9,11 @@ at any w:
   pix[y,x,p] = Σ_{t,c} vis[t,c,p] · e^{i·phase}
 then Jones A1ᴴ·P·A2 and the taper. `cuda_v1` evaluates every phasor exactly
 (the kernel: reduced by 2π, then the SFU). `cuda_v2` advances the phasor over the channels by repeated
-complex multiplies with e^{−i·pi·Δk}, Δk = k[1] − k[0], and restarts it from
-an exact sincos every CHANNEL_GROUP channels (JAX's pallas_v2 starts once, at
-channel 0, and drifts past the 1e-5 gate at C = 256); it assumes uniform
-channel spacing. The kernel takes the complex MAC as a product on the TF32
+complex multiplies with e^{−i·pi·Δk}, Δk the uniform fit's step
+(`channel_step`), and restarts it from an exact sincos every CHANNEL_GROUP
+channels (JAX's pallas_v2 starts once, at channel 0, steps by k[1] − k[0]
+and drifts past the 1e-5 gate at C = 256); it assumes uniform channel
+spacing. The kernel takes the complex MAC as a product on the TF32
 tensor cores in three passes ("3xtf32", ops/precision.py), float32 quality;
 the plain version below contracts in float32.
 
@@ -47,8 +48,28 @@ def expi(phase: torch.Tensor) -> torch.Tensor:
 
 
 def channel_step(k: torch.Tensor) -> torch.Tensor:
-    """Δk = k[1] − k[0] in f32 (0 for one channel), the recurrence's step."""
-    return k[1] - k[0] if k.shape[0] > 1 else torch.zeros((), dtype=k.dtype, device=k.device)
+    """Δk of the uniform fit through the first and the last wavenumber,
+    (k[C−1] − k[0]) / (C − 1) in f32 (0 for one channel): the step of every
+    channel recurrence of the port, kernels (which read it as k[C],
+    `wavenumbers_and_step`) and plain versions alike, and the fit `ops/common.py:
+    uniform_channel_spacing` holds the wavenumbers to. k[1] − k[0] carries
+    both ends' float32 roundings, up to an ulp of k, and the recurrence
+    multiplies that by up to CHANNEL_GROUP − 1 steps: on the correctness
+    problem the plain gridder cuda_v2's error is 4.3e-6 with it and 2.1e-6
+    with the fitted step (cuda_v1: 2.1e-6)."""
+    C = k.shape[0]
+    if C < 2:
+        return torch.zeros((), dtype=k.dtype, device=k.device)
+    return (k[-1] - k[0]) / (C - 1)
+
+
+def wavenumbers_and_step(k: torch.Tensor) -> torch.Tensor:
+    """f32[C + 1]: the wavenumbers, then their `channel_step`, formed on
+    their device by the arithmetic a plain version there runs. The
+    recurrence kernels (K8a, K9a, K8c, K9c, K9d) take this as their k and
+    read Δk = k[C]: a division in their prologue, though run once a
+    thread, slowed K8a's gridder 3.8% (H100, scripts/time_direct.py)."""
+    return torch.cat((k, channel_step(k).reshape(1)))
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -131,9 +152,10 @@ def _gridder_direct(wrapper, params: IDGParams, stg: Staged, recurrence: bool):
     if S == 0:
         return out
     lib = build.library()
+    k_dk = wavenumbers_and_step(stg.wavenumbers)
     with torch.cuda.device(device):
         rc = lib.idg_gridder_direct(
-            ptr(stg.uvw), ptr(stg.vis), ptr(stg.wavenumbers), ptr(stg.w_off),
+            ptr(stg.uvw), ptr(stg.vis), ptr(k_dk), ptr(stg.w_off),
             ptr(stg.po_x), ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n),
             ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(out),

@@ -49,7 +49,7 @@ from .gridder import (
     ptr,
     taylor_coefficients,
 )
-from .gridder_direct import channel_step, expi
+from .gridder_direct import channel_step, expi, wavenumbers_and_step
 
 RESYNC = 16   # the recurrence restarts exactly at every channel c % RESYNC == 0, c > 0
 # the kernels' `variant` argument: (tensor-core bf16 split products, channel recurrence)
@@ -161,9 +161,10 @@ def _gridder_separable(wrapper, version: str, params: IDGParams, stg: Staged, w_
     if S == 0:
         return out
     lib = build.library()
+    k_dk = wavenumbers_and_step(stg.wavenumbers)
     with torch.cuda.device(device):
         rc = lib.idg_gridder_separable(
-            ptr(stg.uvw), ptr(stg.vis), ptr(stg.mu), ptr(stg.wavenumbers),
+            ptr(stg.uvw), ptr(stg.vis), ptr(stg.mu), ptr(k_dk),
             ptr(stg.po_x), ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n),
             ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(out),

@@ -24,9 +24,9 @@ from ...config import IDGParams
 from ..common import Staged, phase_index, phase_offset_exact
 from ..cuda.degridder import prepare_degridder
 from ..cuda.gridder import full_fp32_matmuls
-from ..cuda.gridder_direct import CHANNEL_GROUP, expi
+from ..cuda.gridder_direct import CHANNEL_GROUP, channel_step, expi
 from ..registry import register
-from .gridder import BATCH_SIZE, fitted_channel_step
+from .gridder import BATCH_SIZE
 
 
 def degridder_mapped(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
@@ -69,7 +69,7 @@ def body_matmul(uvw, pix, po, k, l, m, n) -> torch.Tensor:
 def body_channel_recurrence(uvw, pix, po, k, l, m, n) -> torch.Tensor:
     C = k.shape[0]
     pi = phase_index(uvw, l, m, n)
-    delta = expi(pi * fitted_channel_step(k))
+    delta = expi(pi * channel_step(k))
     vis = []
     for c0 in range(0, C, CHANNEL_GROUP):
         c1 = min(c0 + CHANNEL_GROUP, C)

@@ -11,7 +11,7 @@ ops on the staging's device:
                    of channel c times e^{−i·pi·Δk} (xla/gridder.py:100-120),
                    restarted from an exact phasor every CHANNEL_GROUP channels
                    as gridder cuda_v2 is, with Δk the uniform fit's step
-                   (`fitted_channel_step`); it assumes uniform channel spacing.
+                   (`ops/cuda/gridder_direct.py:channel_step`); it assumes uniform channel spacing.
                    JAX's xla_v3 starts once and steps by k[1] − k[0], and
                    drifts (7.9e-6 from the oracle on the correctness problem)
 
@@ -29,24 +29,10 @@ import torch
 from ...config import IDGParams
 from ..common import Staged, phase_index, phase_offset_exact
 from ..cuda.gridder import finish_gridder, full_fp32_matmuls
-from ..cuda.gridder_direct import CHANNEL_GROUP, expi
+from ..cuda.gridder_direct import CHANNEL_GROUP, channel_step, expi
 from ..registry import register
 
 BATCH_SIZE = 16   # subgrids a step of torch_v1 / v2 / v3 (the xla rungs' lax.map batch)
-
-
-def fitted_channel_step(k: torch.Tensor) -> torch.Tensor:
-    """Δk of the uniform fit through the first and the last wavenumber,
-    (k[C−1] − k[0]) / (C − 1) in f32 (0 for one channel): the fit
-    `ops/common.py:uniform_channel_spacing` holds the wavenumbers to.
-    k[1] − k[0] carries both ends' float32 roundings, up to an ulp of k, and
-    the recurrence multiplies that by up to CHANNEL_GROUP − 1 steps: on the
-    correctness problem the gridder's error is 4.3e-6 with it and 2.3e-6
-    with the fitted step (torch_v2: 2.2e-6)."""
-    C = k.shape[0]
-    if C < 2:
-        return torch.zeros((), dtype=k.dtype, device=k.device)
-    return (k[-1] - k[0]) / (C - 1)
 
 
 def gridder_mapped(params: IDGParams, stg: Staged, batch_size: int, body) -> torch.Tensor:
@@ -90,7 +76,7 @@ def body_channel_recurrence(uvw, vis, po, k, l, m, n) -> torch.Tensor:
     channel advances the phasor by one complex multiply."""
     C = k.shape[0]
     pi = phase_index(uvw, l, m, n)                                   # [s,T,N,N]
-    delta = expi(-pi * fitted_channel_step(k))
+    delta = expi(-pi * channel_step(k))
     pix = 0
     for c0 in range(0, C, CHANNEL_GROUP):
         c1 = min(c0 + CHANNEL_GROUP, C)

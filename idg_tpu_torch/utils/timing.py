@@ -61,29 +61,39 @@ def _device_seconds(fn: Callable, args: tuple, iters: int) -> float:
 
 
 def time_kernel(
-    fn: Callable, *args, harness: Optional[HarnessConfig] = None
+    fn: Callable, *args, harness: Optional[HarnessConfig] = None,
+    agree: Optional[Callable[[float], float]] = None,
 ) -> TimingResult:
     """Warm-up + CUDA-event-timed launch windows (p_run_kernel semantics,
     app/CUDA/util.cpp:81-128). `fn(*args)` must enqueue its work on the
     current CUDA stream. Raises when no card is visible: a time is only
-    ever a device time."""
+    ever a device time.
+
+    `agree` is for ranks that time together (the sharded pipelines, whose
+    collectives every rank must enter as often as the others): each rank
+    passes it every window's seconds and gets back the value all ranks
+    share, their maximum, before the next window starts. So every rank
+    calibrates the same launch count, the agreement is each window's
+    barrier, and the windows are the slowest rank's."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_kernel times the card, and no CUDA device is visible")
     cfg = harness or HarnessConfig.from_env()
+    agree = agree or (lambda seconds: seconds)
 
     fn(*args)                      # build, load and first-touch excluded
     for _ in range(cfg.nr_warm_up_runs):
         fn(*args)
     torch.cuda.synchronize()
+    agree(0.0)
 
     iters = max(1, cfg.nr_iterations)
-    total = _device_seconds(fn, args, iters)
+    total = agree(_device_seconds(fn, args, iters))
     while total < MIN_WINDOW_S and iters < MAX_ITERATIONS:
         iters = min(MAX_ITERATIONS,
                     max(iters * 2, int(iters * 1.2 * MIN_WINDOW_S / max(total, 1e-9))))
-        total = _device_seconds(fn, args, iters)
+        total = agree(_device_seconds(fn, args, iters))
 
-    windows = [total] + [_device_seconds(fn, args, iters)
+    windows = [total] + [agree(_device_seconds(fn, args, iters))
                          for _ in range(max(0, cfg.nr_windows - 1))]
     return TimingResult(
         seconds=min(windows) / iters,

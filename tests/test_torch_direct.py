@@ -506,3 +506,54 @@ def test_phasor_reduction_model_holds_1e6(model):
     x64 = x.astype(np.float64)
     assert np.abs(cs - np.cos(x64)).max() <= 1e-6
     assert np.abs(sn - np.sin(x64)).max() <= 1e-6
+
+
+def _oracle_errors_by_step(monkeypatch, workload, versions, step):
+    """Each version's plain error against the oracle on the correctness
+    problem (w = 0), its recurrence stepped by `step` (None: the port's)."""
+    from idg_tpu_torch.data import initialize_subgrids, make_observation
+    from idg_tpu_torch.ops.cuda import degridder_direct, gridder_direct
+
+    if step is not None:
+        for module in (gridder_direct, degridder_direct):
+            monkeypatch.setattr(module, "channel_step", step)
+    params = tcfg.IDGParams.correctness_defaults()
+    obs, _ = make_observation(params)
+    if workload == "gridder":
+        want = gridder_reference(params, obs)
+        return [_error(tapi.run_gridder(params, obs, v, device="cpu"), want) for v in versions]
+    sub = initialize_subgrids(params.nr_subgrids, params.nr_correlations, params.subgrid_size)
+    want = degridder_reference(params, obs, sub)
+    return [_error(tapi.run_degridder(params, obs, sub, v, device="cpu"), want)
+            for v in versions]
+
+
+def _k1_minus_k0(k):
+    return k[1] - k[0] if k.shape[0] > 1 else torch.zeros((), dtype=k.dtype)
+
+
+@pytest.mark.parametrize("workload", ["gridder", "degridder"])
+def test_recurrence_steps_by_the_uniform_fit(workload, monkeypatch):
+    """cuda_v2 steps by the uniform fit's Δk (channel_step): on the
+    correctness problem the plain gridder's error falls from 4.3e-6 with
+    k[1] − k[0] to within 1.2× cuda_v1's (K8a on an H100: 4.422e-06 →
+    2.327e-06, cuda_v1 2.169e-06), and the degridder's does not rise."""
+    v1, v2 = _oracle_errors_by_step(monkeypatch, workload, ("cuda_v1", "cuda_v2"), None)
+    (v2_k1_minus_k0,) = _oracle_errors_by_step(monkeypatch, workload, ("cuda_v2",),
+                                               _k1_minus_k0)
+    assert v2 <= v2_k1_minus_k0, (v2, v2_k1_minus_k0)
+    if workload == "gridder":
+        assert v2_k1_minus_k0 > 4e-6 and v2 <= 1.2 * v1, (v1, v2, v2_k1_minus_k0)
+
+
+def test_channel_step_is_the_uniform_fit():
+    from idg_tpu_torch.ops.cuda.gridder_direct import wavenumbers_and_step
+
+    k = torch.tensor([1.0, 1.25, 1.5, 1.75, 2.0], dtype=torch.float32)
+    assert float(channel_step(k)) == 0.25
+    k = torch.linspace(8.1, 9.7, 16, dtype=torch.float32)
+    assert channel_step(k) == (k[-1] - k[0]) / 15
+    assert float(channel_step(k[:1])) == 0.0
+    k_dk = wavenumbers_and_step(k)   # what the recurrence kernels read: Δk = k[C]
+    assert k_dk.shape == (17,) and torch.equal(k_dk[:16], k)
+    assert k_dk[16] == channel_step(k)

@@ -36,7 +36,7 @@ import idg_tpu_torch.ops.api as tapi
 from idg_tpu.config import IDGParams
 from idg_tpu_torch.models.reference import degridder_reference, gridder_reference
 from idg_tpu_torch.ops.registry import get_kernel, list_kernels
-from idg_tpu_torch.ops.torch_ladder.gridder import fitted_channel_step
+from idg_tpu_torch.ops.cuda.gridder_direct import channel_step
 from idg_tpu_torch.types import from_numpy_observation
 from idg_tpu_torch.utils.compare import check_error
 from idg_tpu_torch.utils.roofline import unit
@@ -123,8 +123,8 @@ def test_gridder_v3_restarts_hold_v2_error():
 
 def test_fitted_channel_step():
     k = torch.tensor([1.0, 1.5, 2.0, 2.5], dtype=torch.float32)
-    assert float(fitted_channel_step(k)) == 0.5
-    assert float(fitted_channel_step(k[:1])) == 0.0
+    assert float(channel_step(k)) == 0.5
+    assert float(channel_step(k[:1])) == 0.0
 
 
 XLA_RUNGS = [(w, f"xla_{v}") for w in WORKLOADS for v in RUNGS]

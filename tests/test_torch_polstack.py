@@ -242,3 +242,24 @@ def test_report_csv_writes_the_roofline_row(tmp_path):
     path = report_csv("gridder_cuda_v6", "cpu", 0.5, 100.0, 10.0, 50.0,
                       output_path=str(tmp_path))
     assert "roofline_pct" not in pathlib.Path(path).read_text()
+
+
+def test_polstack_steps_by_the_uniform_fit(monkeypatch):
+    """cuda_v6 (K9d) takes the recurrence of cuda_v5's planes, stepped by the
+    uniform fit's Δk: on the correctness problem its plain error does not
+    rise against the one with k[1] − k[0] (5.67e-6 → 5.57e-6)."""
+    from idg_tpu_torch.data import initialize_subgrids, make_observation
+    from idg_tpu_torch.ops.cuda import gridder_separable
+
+    params = tcfg.IDGParams.correctness_defaults()
+    obs, _ = make_observation(params)
+    sub = initialize_subgrids(params.nr_subgrids, params.nr_correlations, params.subgrid_size)
+    want = degridder_reference(params, obs, sub)
+
+    def error():
+        return _error(tapi.run_degridder(params, obs, sub, "cuda_v6", device="cpu"), want)
+
+    fitted = error()
+    monkeypatch.setattr(gridder_separable, "channel_step",
+                        lambda k: k[1] - k[0] if k.shape[0] > 1 else torch.zeros(()))
+    assert fitted <= error()
