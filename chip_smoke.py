@@ -145,6 +145,21 @@ non-zero:
               wrapper's; (d) parallel/parity.py's replicated all-reduce
               pipeline on two gloo ranks sharing the card under torchrun
               (parity only, no time); each part's seconds
+ 16. trace    the trace hook: with IDG_PROFILE_DIR set, `pipeline --direction
+              grid` and `--direction degrid` at the default problem, `scaling
+              --workload pipeline --grid-method ranges --mesh-sizes 1` with
+              NR_WINDOWS=1, and the ladder rung `run --workload gridder
+              --version torch_v1` (one window of one pass), launch counts
+              reset before each; every trace read by
+              scripts/trace_tools_cuda.py: its top device operations a pass,
+              the stream's idle share, its longest gaps with their host
+              events and its idle time by host event; it raises when a
+              kernel the counters saw launch inside the traced windows is
+              missing from the trace, when K1's fused form, K4, K5 or K2's
+              fused form appears a number of times other than its launches
+              there, or (but for the ladder rung) when the trace's device
+              span a pass is more than 5% from time_kernel's CUDA-event
+              seconds a pass over the same windows; its seconds
 Phases 1-8 print their seconds under [time], as does phase 9's check sweep
 and the run as a whole. Then a JSON line of per-kernel results (each with its bound from
 idg_tpu_torch/utils/roofline.py: the larger of its bytes over 3.35 TB/s and
@@ -193,6 +208,32 @@ K9D_ORACLE_SLACK = 1.1
 LADDER_NEIGHBOURS = {"torch_reference": "cuda_v1", "torch_v1": "cuda_v1",
                      "torch_v2": "cuda_v1", "torch_v3": "cuda_v2", "torch_v4": "cuda_v3"}
 SUSTAIN_S = 5.0          # `run --sustain` window of K1 and K2
+TRACE_SPAN_SLACK = 0.05  # a trace's device span a pass against the CUDA-event seconds
+# each wrapper's kernel in a trace: its __global__ name and, for the two
+# forms of K1 and K2, whether the instance is the fused one (None: any)
+TRACE_KERNELS = {
+    "gridder_cuda_v6": ("gridder_kernel", False),
+    "gridder_cuda_v6_pieces": ("gridder_kernel", True),
+    "degridder_cuda_v7": ("degridder_kernel", False),   # its non-fused launches
+    "degridder_cuda_v7_fused": ("degridder_kernel", True),
+    "grid_add_cuda": ("grid_add_kernel", None),
+    "grid_extract_cuda": ("grid_extract_kernel", None),
+    "grid_add_pieces_cuda": ("grid_add_pieces_kernel", None),
+    "grid_add_merged_cuda": ("grid_add_merged_kernel", None),
+    "grid_add_scatter_cuda": ("grid_add_scatter_kernel", None),
+    "grid_add_slots_cuda": ("grid_add_slots_kernel", None),
+    "gridder_cuda_v1": ("gridder_direct_kernel", None),
+    "gridder_cuda_v2": ("gridder_direct_kernel", None),
+    "degridder_cuda_v1": ("degridder_direct_kernel", None),
+    "degridder_cuda_v2": ("degridder_direct_kernel", None),
+    "vadd_cuda": ("vadd_kernel", None),
+    **{f"{w}_cuda_v{i}": (f"{w}_sep_v{i}_kernel", None)
+       for w in ("gridder", "degridder") for i in (3, 4, 5)},
+    "degridder_cuda_v6": ("degridder_polstack_kernel", None),
+}
+# the kernels whose count in a trace must equal their launches in its windows
+TRACE_EXACT = ("gridder_cuda_v6_pieces", "grid_add_cuda", "grid_extract_cuda",
+               "degridder_cuda_v7_fused")
 # K3's two rows: the form of the fused kernel it runs in, the form's
 # non-fused kernel, and the TPU function it replaces
 K3_FORMS = (("k3_in_gridder_cuda_v6_pieces", "gridder_cuda_v6_pieces"),
@@ -1939,6 +1980,163 @@ def mesh_phase(rows, single):
     dist.destroy_process_group()
 
 
+def trace_counts(tools, path: str) -> dict:
+    """{(__global__ name, fused or None): events} of a trace's kernels; the
+    fused flag is the last template argument of K1's and K2's instances."""
+    counts = {}
+    for e in tools.load_events(path):
+        if e.get("cat") != "kernel":
+            continue
+        base, targs = tools.kernel_base(e["name"])
+        form = None
+        if base in ("gridder_kernel", "degridder_kernel"):
+            form = targs.rsplit(",", 1)[-1].strip() in ("true", "(bool)1", "1")
+        counts[(base, form)] = counts.get((base, form), 0) + 1
+    return counts
+
+
+def check_trace(tools, window: dict, label: str, strict: bool = True) -> dict:
+    """Print one traced time_kernel call's tables from the reader and hold
+    the trace to the launch counters and to the CUDA-event seconds of the
+    same windows (`window`: its path, launches and TimingResult). Returns
+    the reader's summary."""
+    summary = tools.summarize(window["path"], top=8, gaps=3)
+    timed = window["timing"].timed_windows
+    passes = sum(n for n, _ in timed)
+    stream = summary["streams"][0]
+    span_ms = stream["span_ms"] / passes
+    event_ms = sum(t for _, t in timed) * 1e3 / passes
+    off = span_ms / event_ms - 1.0
+    phase("trace", f"{label} [{os.path.basename(window['path'])}]: {passes} passes in "
+                   f"{len(timed)} windows; device span {span_ms:.3f} ms a pass, CUDA events "
+                   f"{event_ms:.3f} ms ({100 * off:+.2f}%); stream ({stream['device']}, "
+                   f"{stream['stream']}) busy {stream['busy_ms'] / passes:.3f} ms a pass, "
+                   f"idle {100 * stream['idle_share']:.2f}%")
+    for r in summary["streams"][1:]:
+        phase("trace", f"  stream ({r['device']}, {r['stream']}): busy "
+                       f"{r['busy_ms'] / passes:.3f} ms a pass, {r['events']} events")
+    for r in summary["ops"]:
+        phase("trace", f"  {r['total_ms'] / passes:9.3f} ms a pass ×{r['count']:<6d} "
+                       f"{100 * r['share']:5.1f}%  {tools.label(r['name'])[:90]}")
+    for g in summary["gaps"]:
+        host = f"{g['host_cat']} {g['host']}" if g["host"] else "(no host event)"
+        phase("trace", f"  gap {g['ms']:.3f} ms: {host[:90]}")
+    for r in summary["idle_by_host"][:5]:
+        host = f"{r['host_cat']} {r['host']}" if r["host"] else "(no host event)"
+        phase("trace", f"  idle {r['ms'] / passes:.3f} ms a pass in {r['gaps']} gaps: {host[:80]}")
+    launched = {name: n for name, n in window["launches"].items() if n}
+    if "degridder_cuda_v7" in launched:    # its count holds the fused launches too
+        launched["degridder_cuda_v7"] -= launched.get("degridder_cuda_v7_fused", 0)
+    seen = trace_counts(tools, window["path"])
+    named = {base + {True: " (fused)", False: " (non-fused)"}.get(form, ""): n
+             for (base, form), n in seen.items()}
+    phase("trace", f"  launches in the windows {launched}; kernels in the trace {named}")
+    for name, n in launched.items():
+        if n and not seen.get(TRACE_KERNELS[name]):
+            raise RuntimeError(f"{label}: {name} launched {n} times in the traced windows "
+                               f"and is missing from the trace")
+        if name in TRACE_EXACT and seen.get(TRACE_KERNELS[name]) != n:
+            raise RuntimeError(f"{label}: {name} launched {n} times in the traced windows, "
+                               f"the trace holds {seen.get(TRACE_KERNELS[name])}")
+    if strict and abs(off) > TRACE_SPAN_SLACK:
+        raise RuntimeError(f"{label}: the trace's device span a pass is {100 * off:+.2f}% from "
+                           f"the CUDA-event seconds of the same windows")
+    return summary
+
+
+def trace_phase():
+    """Phase 16: the trace hook (utils/timing.py:trace_window through
+    IDG_PROFILE_DIR) and its reader (scripts/trace_tools_cuda.py) on the
+    card: both default pipelines, the range pipeline at mesh 1 with one
+    window, and a launch-bound ladder rung, each call of time_kernel traced
+    and checked by `check_trace`. Returns the trace directory."""
+    import contextlib
+    import importlib.util
+
+    import torch
+    import torch.distributed as dist
+
+    from idg_tpu_torch import cli
+    from idg_tpu_torch.ops import cuda as kernels
+    from idg_tpu_torch.utils import timing as ttiming
+    from idg_tpu_torch.utils.printing import nvidia_smi_power_line
+
+    spec = importlib.util.spec_from_file_location(
+        "trace_tools_cuda", ROOT / "scripts" / "trace_tools_cuda.py")
+    tools = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tools)
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    phase("trace", f"IDG_PROFILE_DIR={trace_dir} [{nvidia_smi_power_line()}]")
+    windows = []
+    traced, timed = ttiming.trace_window, ttiming.time_kernel
+
+    @contextlib.contextmanager
+    def counted_window(profile_dir, label="fn"):
+        before = launch_counts()
+        with traced(profile_dir, label) as path:
+            yield path
+        after = launch_counts()
+        windows.append({"path": path, "launches": {k: after[k] - before[k] for k in after}})
+
+    def noted_time(*args, **kwargs):
+        res = timed(*args, **kwargs)
+        windows[-1]["timing"] = res
+        return res
+
+    saved = {k: os.environ.get(k) for k in ("IDG_PROFILE_DIR", "NR_WINDOWS", "NR_ITERATIONS",
+                                             "NR_WARM_UP_RUNS")}
+
+    def restore(*keys):
+        for key in keys:
+            if saved[key] is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = saved[key]
+
+    def run(label, call, env=None, strict=True):
+        kernels.reset_launch_counts()
+        windows.clear()
+        os.environ.update(env or {})
+        try:
+            out = call()
+        finally:
+            restore(*(env or {}))
+        for i, window in enumerate(windows):
+            if window["path"] is None:
+                raise RuntimeError(f"{label}: time_kernel call {i} wrote no trace")
+            check_trace(tools, window, f"{label} call {i}", strict)
+        if not windows:
+            raise RuntimeError(f"{label}: no time_kernel call was traced")
+        torch.cuda.empty_cache()
+        return out
+
+    os.environ["IDG_PROFILE_DIR"] = trace_dir
+    ttiming.trace_window, ttiming.time_kernel = counted_window, noted_time
+    try:
+        for direction in ("grid", "degrid"):
+            res = run(f"pipeline --direction {direction}",
+                      lambda: cli._pipeline_one(direction, suffix="_traced"))
+            phase("trace", f"pipeline --direction {direction}: {res.seconds * 1e3:.3f} ms/pass "
+                           "traced (the profiler's cost included)")
+            del res
+        ((_, s),) = run("scaling --workload pipeline --grid-method ranges --mesh-sizes 1",
+                        lambda: cli._scaling("pipeline", mesh_sizes=[1], grid_method="ranges"),
+                        env={"NR_WINDOWS": "1"})
+        phase("trace", f"scaling pipeline (ranges) mesh 1: {s * 1e3:.3f} ms/pass traced")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        s = run("run --workload gridder --version torch_v1",
+                lambda: cli._perf_one("gridder", "torch_v1", name_suffix="_traced"),
+                env={"NR_WINDOWS": "1", "NR_ITERATIONS": "1", "NR_WARM_UP_RUNS": "0"},
+                strict=False)
+        phase("trace", f"gridder torch_v1: {s * 1e3:.3f} ms/pass traced (one pass)")
+    finally:
+        ttiming.trace_window, ttiming.time_kernel = traced, timed
+        restore("IDG_PROFILE_DIR")
+    return trace_dir
+
+
 def main() -> int:
     import torch
 
@@ -2097,6 +2295,11 @@ def main() -> int:
                       "pipeline": pipeline_seconds["grid"],
                       "pipeline-degrid": pipeline_seconds["degrid"]})
     phase_done("phase 15", t_phase)
+
+    # 16. the trace hook and its reader on both pipelines, the mesh and the ladder
+    t_phase = time.perf_counter()
+    trace_phase()
+    phase_done("phase 16", t_phase)
     phase_done("all phases", t_run)
 
     print(json.dumps({"kernels": rows}))

@@ -14,13 +14,22 @@ the min over windows; mean and σ are kept as the noise bound.
 window of some seconds, its device time taken in chunks, so that the
 per-chunk series shows drift (clocks, power, queue backpressure) that the
 min-of-windows headline hides by construction.
+
+The trace hook is the counterpart of ``idg_tpu/utils/timing.py:79-85,
+105-106, 131-132``: with `profile_dir=` or ``IDG_PROFILE_DIR`` set,
+`time_kernel`'s timed windows run inside `torch.profiler` (`trace_window`),
+which exports one Chrome trace per call for ``scripts/trace_tools_cuda.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import glob
+import os
+import re
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -37,6 +46,9 @@ class TimingResult:
     iterations: int         # iterations per window
     warmup_runs: int
     all_seconds: tuple      # per-window device seconds
+    # every window timed, the calibration's included, as (iterations,
+    # seconds): what a trace of the call covers
+    timed_windows: tuple = ()
 
     @property
     def seconds_std(self) -> float:
@@ -60,9 +72,46 @@ def _device_seconds(fn: Callable, args: tuple, iters: int) -> float:
     return start.elapsed_time(end) * 1e-3
 
 
+def _trace_rank() -> int:
+    """This process's rank for a trace's file name: torch.distributed's when
+    a world is up, else the launcher's RANK, else 0."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return int(os.environ.get("RANK", "0"))
+
+
+@contextlib.contextmanager
+def trace_window(profile_dir: Optional[str], label: str = "fn") -> Iterator[Optional[str]]:
+    """Run the body inside `torch.profiler.profile` (CPU and CUDA activity,
+    no shapes or stacks, flops counted where the profiler can) and export
+    its Chrome trace into `profile_dir` as
+    ``<pid>-r<rank>-<n>-<label>.pt.trace.json``, n counting this process's
+    traces of that rank there, so that calls and ranks never share a file.
+    Yields the file's path; with no `profile_dir` it yields None and traces
+    nothing. The profile stops, and nothing is written, when the body
+    raises."""
+    if not profile_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    stem = f"{os.getpid()}-r{_trace_rank()}"
+    n = len(glob.glob(os.path.join(glob.escape(profile_dir), f"{stem}-*.pt.trace.json")))
+    label = re.sub(r"[^A-Za-z0-9_.]+", "", label) or "fn"
+    path = os.path.join(profile_dir, f"{stem}-{n}-{label}.pt.trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=False, with_stack=False, with_flops=True) as prof:
+        yield path
+    prof.export_chrome_trace(path)
+
+
 def time_kernel(
     fn: Callable, *args, harness: Optional[HarnessConfig] = None,
     agree: Optional[Callable[[float], float]] = None,
+    profile_dir: Optional[str] = None,
 ) -> TimingResult:
     """Warm-up + CUDA-event-timed launch windows (p_run_kernel semantics,
     app/CUDA/util.cpp:81-128). `fn(*args)` must enqueue its work on the
@@ -74,11 +123,19 @@ def time_kernel(
     passes it every window's seconds and gets back the value all ranks
     share, their maximum, before the next window starts. So every rank
     calibrates the same launch count, the agreement is each window's
-    barrier, and the windows are the slowest rank's."""
+    barrier, and the windows are the slowest rank's.
+
+    `profile_dir`, or when it is None the ``IDG_PROFILE_DIR`` environment
+    variable, traces the timed windows, the first through the last, the
+    calibration's included (`trace_window`), so any command that times
+    through here can be traced with no flag of its own. A traced call's
+    times carry the profiler's cost: they are not headline times."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_kernel times the card, and no CUDA device is visible")
     cfg = harness or HarnessConfig.from_env()
     agree = agree or (lambda seconds: seconds)
+    if profile_dir is None:
+        profile_dir = os.environ.get("IDG_PROFILE_DIR") or None
 
     fn(*args)                      # build, load and first-touch excluded
     for _ in range(cfg.nr_warm_up_runs):
@@ -86,20 +143,27 @@ def time_kernel(
     torch.cuda.synchronize()
     agree(0.0)
 
-    iters = max(1, cfg.nr_iterations)
-    total = agree(_device_seconds(fn, args, iters))
-    while total < MIN_WINDOW_S and iters < MAX_ITERATIONS:
-        iters = min(MAX_ITERATIONS,
-                    max(iters * 2, int(iters * 1.2 * MIN_WINDOW_S / max(total, 1e-9))))
-        total = agree(_device_seconds(fn, args, iters))
+    timed = []
 
-    windows = [total] + [agree(_device_seconds(fn, args, iters))
-                         for _ in range(max(0, cfg.nr_windows - 1))]
+    def window(n: int) -> float:
+        seconds = agree(_device_seconds(fn, args, n))
+        timed.append((n, seconds))
+        return seconds
+
+    with trace_window(profile_dir, getattr(fn, "__name__", "fn")):
+        iters = max(1, cfg.nr_iterations)
+        total = window(iters)
+        while total < MIN_WINDOW_S and iters < MAX_ITERATIONS:
+            iters = min(MAX_ITERATIONS,
+                        max(iters * 2, int(iters * 1.2 * MIN_WINDOW_S / max(total, 1e-9))))
+            total = window(iters)
+        windows = [total] + [window(iters) for _ in range(max(0, cfg.nr_windows - 1))]
     return TimingResult(
         seconds=min(windows) / iters,
         iterations=iters,
         warmup_runs=cfg.nr_warm_up_runs,
         all_seconds=tuple(windows),
+        timed_windows=tuple(timed),
     )
 
 
