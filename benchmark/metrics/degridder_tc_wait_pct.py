@@ -1,0 +1,10 @@
+"""degridder_tc_wait_pct: the share of the fused K2's tile loop that its
+tensor-core warps (consumer warp 0) wait at the tile barriers for the
+formation, 100 × Σtc_wait / Σloop over the traced window's probed launches
+(csrc/degridder.cu, kProbe)."""
+
+from benchmark import port
+
+
+def read(ctx):
+    return port.probe_pct(port.DEGRIDDER_PROBE, "tc_wait", "loop")

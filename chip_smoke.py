@@ -1564,16 +1564,22 @@ def instance_report(tag: str, label: str, kernel: str, opcode: str = "HGMMA",
     unless all four are there and run on the tensor cores, with `no_spill`
     if one spills, and with `flag_adds` unless each flagged instance has
     more `opcode` instructions than its unflagged one (K3 on the tensor
-    cores in the fused forms)."""
+    cores in the fused forms). The probed instances of K1 and K2 (a third
+    flag, kProbe, set) are printed beside, and counted in none of these."""
     from idg_tpu_torch.ops.cuda import build
 
-    stem = re.compile(rf"{kernel}ILi(\d+)ELb(\d)E")
+    stem = re.compile(rf"{kernel}ILi(\d+)ELb(\d)E(?:Lb0E)?E")
+    probed = re.compile(rf"{kernel}ILi(\d+)ELb1ELb1EE")
     lines = build.build_log.splitlines()
     ptxas = {}
     for i, line in enumerate(lines):
         found = stem.search(line)
         if "Compiling entry" in line and found:
             ptxas[found.groups()] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+        found = probed.search(line)
+        if "Compiling entry" in line and found:
+            phase(tag, f"{label} N = {found.group(1)} {forms[1]} probed: ptxas "
+                       + " | ".join(x.strip() for x in lines[i + 2:i + 4]))
     counts = {stem.search(name).groups(): count
               for name, count in sass_counts(str(build.build()), stem.pattern, opcode).items()}
     for key in sorted(set(ptxas) | set(counts)):
@@ -1982,7 +1988,8 @@ def mesh_phase(rows, single):
 
 def trace_counts(tools, path: str) -> dict:
     """{(__global__ name, fused or None): events} of a trace's kernels; the
-    fused flag is the last template argument of K1's and K2's instances."""
+    fused flag is the second template argument of K1's and K2's instances
+    (the third, kProbe, is set in a traced window's fused launches)."""
     counts = {}
     for e in tools.load_events(path):
         if e.get("cat") != "kernel":
@@ -1990,7 +1997,7 @@ def trace_counts(tools, path: str) -> dict:
         base, targs = tools.kernel_base(e["name"])
         form = None
         if base in ("gridder_kernel", "degridder_kernel"):
-            form = targs.rsplit(",", 1)[-1].strip() in ("true", "(bool)1", "1")
+            form = targs.split(",")[1].strip() in ("true", "(bool)1", "1")
         counts[(base, form)] = counts.get((base, form), 0) + 1
     return counts
 

@@ -86,11 +86,20 @@
 // memory. The result is the non-fused kernel on
 // ops/grid.py:_finish_extract(pieces). At N = 32 above rank 2 each group of
 // ranks runs the prologue, and K3, again.
+//
+// Phase probes (kProbe, the fused form only; probe.cuh): the entry point
+// given an accumulator launches the probed instance, which sums each
+// block's cycles from entry to exit, in K3 (the fused prologue's copy,
+// un-roll, split and forward DFT, to its barrier), in the tile loops, and
+// waiting at the loops' barriers, on consumer warp 0 (`tc_wait`: the
+// tensor-core warps waiting for the formation) and on the first producer
+// warp (`form_wait`).
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "dft.cuh"
+#include "probe.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -156,7 +165,7 @@ __device__ __forceinline__ void mma_rank(const unsigned char* lhs, const unsigne
   }
 }
 
-template <int N, bool kFuse>
+template <int N, bool kFuse, bool kProbe>
 __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float* __restrict__ mu,           // [S, T, C]
@@ -175,12 +184,15 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
     const int* __restrict__ oyx,            // [S, 2] (kFuse only)
     const float* __restrict__ wr,           // [2, 2N, 2N] K3's split factors, forward (kFuse only)
     float2* __restrict__ out,               // [S, T, C, P]
+    unsigned long long* __restrict__ probe, // [kProbeFields] phase cycles (kProbe only)
     int T, int C, int nr_stations, int w_rank, int group) {
   using namespace idg;
   using TL = Tile<N>;
   constexpr int kThreads = TL::kThreads;
   constexpr int kCons = TL::kConsumers;
   constexpr int kLd = TL::kLdPhy;
+  [[maybe_unused]] const uint32_t t_entry = probe_clock<kProbe>();
+  [[maybe_unused]] uint32_t loop = 0, waited = 0, k3_cycles = 0;   // kProbe's sums
 
   // [lhs hi: group slots][lhs lo: group slots, or one up to rank 2][stage 0][stage 1][sums]
   extern __shared__ __align__(128) unsigned char smem[];
@@ -235,6 +247,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
   auto prologue = [&](int r0, int nr) {
     float2* s_sub = reinterpret_cast<float2*>(stages);
     if constexpr (kFuse) {
+      [[maybe_unused]] const uint32_t t_k3 = probe_clock<kProbe>();
       // K3 (dft.cuh): the pieces as they are into s_sub's padded rows and
       // K3's factors beside them, by cp.async (every copy in flight at
       // once, no registers); then the pieces un-rolled from there and split
@@ -280,6 +293,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
       __syncthreads();
+      if constexpr (kProbe) k3_cycles += probe_clock<kProbe>() - t_k3;
     }
     for (int q = tid; q < N * N; q += kThreads) {
       const int x = ((q >> 5) % (N / 4)) * 4 + (q & 3);
@@ -458,6 +472,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
       fence_async_smem();
     }
     __syncthreads();
+    [[maybe_unused]] const uint32_t t_loop = probe_clock<kProbe>();
     for (int j = 0; j < nt; ++j) {
       if (producer) {
         if (j > 0) store(j - 1, (j - 1) & 1, gi == 0);
@@ -466,19 +481,23 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
       } else {
         consume(j & 1, r0, nr);
       }
-      __syncthreads();
+      probed_sync<kProbe>(waited);
     }
+    if constexpr (kProbe) loop += probe_clock<kProbe>() - t_loop;
     if (producer) store(nt - 1, (nt - 1) & 1, gi == 0);
+  }
+  if constexpr (kProbe) {
+    probe_add(probe, tid, kCons, probe_clock<kProbe>() - t_entry, k3_cycles, loop, waited);
   }
 }
 
-template <int N, bool kFuse>
+template <int N, bool kFuse, bool kProbe>
 cudaError_t launch(const float* uvw, const float* mu, const float* k, const float* po_x,
                    const float* po_y, const float* l, const float* m, const float* n,
                    const float* sph, const float2* aterms, const int* aterm_index,
                    const int* station1, const int* station2, const float2* subgrids,
-                   const int* oyx, const float* wr, float2* out, int S, int T, int C,
-                   int nr_stations, int w_rank, cudaStream_t stream) {
+                   const int* oyx, const float* wr, float2* out, unsigned long long* probe,
+                   int S, int T, int C, int nr_stations, int w_rank, cudaStream_t stream) {
   using TL = Tile<N>;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -496,21 +515,22 @@ cudaError_t launch(const float* uvw, const float* mu, const float* k, const floa
   const int nlo = w_rank > 2 ? group : 1;
   const size_t bytes = (size_t)(group + nlo) * TL::kBytesL + fixed;
   if (group < 1 || bytes > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(degridder_kernel<N, kFuse>,
+  err = cudaFuncSetAttribute(degridder_kernel<N, kFuse, kProbe>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  degridder_kernel<N, kFuse><<<S, TL::kThreads, bytes, stream>>>(
+  degridder_kernel<N, kFuse, kProbe><<<S, TL::kThreads, bytes, stream>>>(
       uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
-      subgrids, oyx, wr, out, T, C, nr_stations, w_rank, group);
+      subgrids, oyx, wr, out, probe, T, C, nr_stations, w_rank, group);
   return cudaGetLastError();
 }
 
+// The probed instance only for the fused form, and only given an accumulator.
 template <bool kFuse>
 int dispatch(const void* uvw, const void* mu, const void* k, const void* po_x,
              const void* po_y, const void* l, const void* m, const void* n, const void* sph,
              const void* aterms, const void* aterm_index, const void* station1,
              const void* station2, const void* subgrids, const void* oyx, const void* wr,
-             void* out, int S, int T, int C, int N, int nr_stations, int w_rank,
+             void* out, void* probe, int S, int T, int C, int N, int nr_stations, int w_rank,
              void* stream) {
   if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
     return (int)cudaErrorInvalidValue;
@@ -521,10 +541,14 @@ int dispatch(const void* uvw, const void* mu, const void* k, const void* po_x,
       (const float*)po_y, (const float*)l, (const float*)m, (const float*)n,           \
       (const float*)sph, (const float2*)aterms, (const int*)aterm_index,               \
       (const int*)station1, (const int*)station2, (const float2*)subgrids,             \
-      (const int*)oyx, (const float*)wr, (float2*)out, S, T, C, nr_stations, w_rank, st
+      (const int*)oyx, (const float*)wr, (float2*)out,                                 \
+      (unsigned long long*)probe, S, T, C, nr_stations, w_rank, st
+  const bool probed = kFuse && probe != nullptr;
   switch (N) {
-    case 16: return (int)launch<16, kFuse>(IDG_ARGS);
-    case 32: return (int)launch<32, kFuse>(IDG_ARGS);
+    case 16: return (int)(probed ? launch<16, kFuse, kFuse>(IDG_ARGS)
+                                 : launch<16, kFuse, false>(IDG_ARGS));
+    case 32: return (int)(probed ? launch<32, kFuse, kFuse>(IDG_ARGS)
+                                 : launch<32, kFuse, false>(IDG_ARGS));
     default: return (int)cudaErrorInvalidValue;
   }
 #undef IDG_ARGS
@@ -539,18 +563,20 @@ extern "C" int idg_degridder_v7(
     const void* subgrids, void* out, int S, int T, int C, int N, int nr_stations,
     int w_rank, void* stream) {
   return dispatch<false>(uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                         station1, station2, subgrids, nullptr, nullptr, out, S, T, C, N,
-                         nr_stations, w_rank, stream);
+                         station1, station2, subgrids, nullptr, nullptr, out, nullptr, S, T,
+                         C, N, nr_stations, w_rank, stream);
 }
 
-// The fused form: `pieces` are the range extraction's block-rolled pieces.
+// The fused form: `pieces` are the range extraction's block-rolled pieces;
+// a non-null `probe` (u64[kProbeFields], zeroed once by the caller)
+// launches the probed instance, which adds the launch's phase cycles into it.
 extern "C" int idg_degridder_v7_fused(
     const void* uvw, const void* mu, const void* k, const void* po_x, const void* po_y,
     const void* l, const void* m, const void* n, const void* sph, const void* aterms,
     const void* aterm_index, const void* station1, const void* station2,
-    const void* pieces, const void* oyx, const void* wr, void* out, int S, int T, int C,
-    int N, int nr_stations, int w_rank, void* stream) {
+    const void* pieces, const void* oyx, const void* wr, void* out, void* probe, int S,
+    int T, int C, int N, int nr_stations, int w_rank, void* stream) {
   return dispatch<true>(uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                        station1, station2, pieces, oyx, wr, out, S, T, C, N, nr_stations,
-                        w_rank, stream);
+                        station1, station2, pieces, oyx, wr, out, probe, S, T, C, N,
+                        nr_stations, w_rank, stream);
 }

@@ -61,9 +61,12 @@
 //    consecutive rows, so neither the formation nor the tensor cores meet
 //    bank conflicts.
 //  - Against the 13.3 ms product floor it runs at about 30% of the TF32
-//    rate (PERF.md): the formation's instructions on a quarter of the
-//    block's warps, and the shared-memory traffic of both operands, read by
-//    every pass, bind it, not the tensor cores.
+//    rate (PERF.md). The formation alone does not bind it: the phase probes
+//    (below) read consumer warp 0 waiting 0.25% of the tile loop at its
+//    barriers and the first producer warp 0.69% (default problem, H100), so
+//    both roles end each tile within some dozens of cycles of each other;
+//    the shared-memory traffic of both operands, read by every pass, and
+//    the issue slots they share are the candidates.
 //
 // Fused epilogue (kFuse): the Jones/taper epilogue writes the subgrid split
 // into K3's operand (dft.cuh), and K3 applies the inverse folded-shift DFT
@@ -77,11 +80,19 @@
 // (rank 4, one stage and the raw slots, both free by then) has that. K3's
 // factors come split from the host by cp.async, started before the
 // epilogue's pixels are formed.
+//
+// Phase probes (kProbe, the fused form only; probe.cuh): the entry point
+// given an accumulator launches the probed instance, which sums each
+// block's cycles from entry to exit, in K3 (from the barrier before its
+// products to the end of its stores), in the tile loop, and waiting at the
+// loop's barriers, on consumer warp 0 (`tc_wait`: the tensor-core warps
+// waiting for the formation) and on the first producer warp (`form_wait`).
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "dft.cuh"
+#include "probe.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -143,7 +154,7 @@ __device__ __forceinline__ void mma_rank(const unsigned char* stage, int slab, i
   }
 }
 
-template <int N, bool kFuse>
+template <int N, bool kFuse, bool kProbe>
 __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float2* __restrict__ vis,         // [S, T, C, P]
@@ -162,12 +173,15 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     const int* __restrict__ oyx,            // [S, 2] (kFuse only)
     const float* __restrict__ wr,           // [2, 2N, 2N] K3's split factors, inverse (kFuse only)
     float2* __restrict__ out,               // [S, P, N, N] subgrids, or pieces with kFuse
+    unsigned long long* __restrict__ probe, // [kProbeFields] phase cycles (kProbe only)
     int T, int C, int nr_stations, int w_rank, int stages) {
   using namespace idg;
   using TL = Tile<N>;
   constexpr int kThreads = TL::kThreads;
   constexpr int kCons = TL::kConsumers;
   constexpr int kProd = TL::kProducers;
+  [[maybe_unused]] const uint32_t t_entry = probe_clock<kProbe>();
+  [[maybe_unused]] uint32_t loop = 0, waited = 0, k3_cycles = 0;   // kProbe's sums
 
   extern __shared__ __align__(128) unsigned char smem[];
   const size_t stage_bytes = TL::stage_bytes(w_rank);
@@ -314,6 +328,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
 
   // Tile j: the consumers multiply and fold it while the producers form
   // tile j + 1 in the other stage (after it, with one stage)
+  loop = probe_clock<kProbe>();
   for (int j = 0; j < nt; ++j) {
     if (producer) {
       // raw slot j & 1 held tile j's data, formed before the last barrier
@@ -335,15 +350,16 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
         fold_rank<N>(r, n, x_out, t4, acc, sum);
       }
     }
-    __syncthreads();
+    probed_sync<kProbe>(waited);
     if (stages == 1 && j + 1 < nt) {
       if (producer) {
         form(j + 1, (j + 1) & 1, 0);
         fence_async_smem();
       }
-      __syncthreads();
+      probed_sync<kProbe>(waited);
     }
   }
+  loop = probe_clock<kProbe>() - loop;
 
   // epilogue: the running sums into shared memory as [P][N][N] (rows of
   // kLdPix with kFuse), then per pixel A1ᴴ · P · A2 (math.hpp:64-77) and the
@@ -405,6 +421,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     cp_async_wait_all();
     fence_async_smem();
     __syncthreads();
+    k3_cycles = probe_clock<kProbe>();
     const bool k3 = __shfl_sync(0xffffffffu, tid < 128 * D::kGroups ? 1 : 0, 0) != 0;
     if (k3) {
       // the roll is taken mod N, as the plain version takes it: no index leaves the tile
@@ -416,16 +433,20 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
                          out_s[p * nn + ((y + oy) & (N - 1)) * N + ((x + ox) & (N - 1))] = v;
                        });
     }
+    k3_cycles = probe_clock<kProbe>() - k3_cycles;
+  }
+  if constexpr (kProbe) {
+    probe_add(probe, tid, kCons, probe_clock<kProbe>() - t_entry, k3_cycles, loop, waited);
   }
 }
 
-template <int N, bool kFuse>
+template <int N, bool kFuse, bool kProbe>
 cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const float* k,
                    const float* po_x, const float* po_y, const float* l, const float* m,
                    const float* n, const float* sph, const float2* aterms,
                    const int* aterm_index, const int* station1, const int* station2,
-                   const int* oyx, const float* wr, float2* out, int S, int T, int C,
-                   int nr_stations, int w_rank, cudaStream_t stream) {
+                   const int* oyx, const float* wr, float2* out, unsigned long long* probe,
+                   int S, int T, int C, int nr_stations, int w_rank, cudaStream_t stream) {
   using TL = Tile<N>;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -439,21 +460,22 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
   size_t bytes = stages * stage + raw;
   // the fused epilogue reuses the stages (and, past them, the raw slots)
   if (kFuse && bytes < TL::kEpilogueBytes) bytes = TL::kEpilogueBytes;
-  err = cudaFuncSetAttribute(gridder_kernel<N, kFuse>,
+  err = cudaFuncSetAttribute(gridder_kernel<N, kFuse, kProbe>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  gridder_kernel<N, kFuse><<<S, TL::kThreads, bytes, stream>>>(
+  gridder_kernel<N, kFuse, kProbe><<<S, TL::kThreads, bytes, stream>>>(
       uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1,
-      station2, oyx, wr, out, T, C, nr_stations, w_rank, stages);
+      station2, oyx, wr, out, probe, T, C, nr_stations, w_rank, stages);
   return cudaGetLastError();
 }
 
+// The probed instance only for the fused form, and only given an accumulator.
 template <bool kFuse>
 int dispatch(const void* uvw, const void* vis, const void* mu, const void* k,
              const void* po_x, const void* po_y, const void* l, const void* m,
              const void* n, const void* sph, const void* aterms, const void* aterm_index,
              const void* station1, const void* station2, const void* oyx, const void* wr,
-             void* out, int S, int T, int C, int N, int nr_stations, int w_rank,
+             void* out, void* probe, int S, int T, int C, int N, int nr_stations, int w_rank,
              void* stream) {
   if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
     return (int)cudaErrorInvalidValue;
@@ -464,10 +486,14 @@ int dispatch(const void* uvw, const void* vis, const void* mu, const void* k,
       (const float*)po_x, (const float*)po_y, (const float*)l, (const float*)m,        \
       (const float*)n, (const float*)sph, (const float2*)aterms,                       \
       (const int*)aterm_index, (const int*)station1, (const int*)station2,             \
-      (const int*)oyx, (const float*)wr, (float2*)out, S, T, C, nr_stations, w_rank, st
+      (const int*)oyx, (const float*)wr, (float2*)out,                                 \
+      (unsigned long long*)probe, S, T, C, nr_stations, w_rank, st
+  const bool probed = kFuse && probe != nullptr;
   switch (N) {
-    case 16: return (int)launch<16, kFuse>(IDG_ARGS);
-    case 32: return (int)launch<32, kFuse>(IDG_ARGS);
+    case 16: return (int)(probed ? launch<16, kFuse, kFuse>(IDG_ARGS)
+                                 : launch<16, kFuse, false>(IDG_ARGS));
+    case 32: return (int)(probed ? launch<32, kFuse, kFuse>(IDG_ARGS)
+                                 : launch<32, kFuse, false>(IDG_ARGS));
     default: return (int)cudaErrorInvalidValue;
   }
 #undef IDG_ARGS
@@ -482,18 +508,20 @@ extern "C" int idg_gridder_v6(
     const void* station2, void* out, int S, int T, int C, int N, int nr_stations,
     int w_rank, void* stream) {
   return dispatch<false>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                         station1, station2, nullptr, nullptr, out, S, T, C, N,
+                         station1, station2, nullptr, nullptr, out, nullptr, S, T, C, N,
                          nr_stations, w_rank, stream);
 }
 
-// The fused form: `out` receives the block-rolled image-domain pieces.
+// The fused form: `out` receives the block-rolled image-domain pieces; a
+// non-null `probe` (u64[kProbeFields], zeroed once by the caller) launches
+// the probed instance, which adds the launch's phase cycles into it.
 extern "C" int idg_gridder_v6_pieces(
     const void* uvw, const void* vis, const void* mu, const void* k, const void* po_x,
     const void* po_y, const void* l, const void* m, const void* n, const void* sph,
     const void* aterms, const void* aterm_index, const void* station1,
-    const void* station2, const void* oyx, const void* wr, void* out, int S, int T,
-    int C, int N, int nr_stations, int w_rank, void* stream) {
+    const void* station2, const void* oyx, const void* wr, void* out, void* probe, int S,
+    int T, int C, int N, int nr_stations, int w_rank, void* stream) {
   return dispatch<true>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
-                        station1, station2, oyx, wr, out, S, T, C, N, nr_stations,
+                        station1, station2, oyx, wr, out, probe, S, T, C, N, nr_stations,
                         w_rank, stream);
 }

@@ -18,6 +18,7 @@ import torch
 
 from ..config import IDGParams
 from ..types import Observation
+from ..utils.trace import span
 from .common import MAX_W_RANK, stage, uniform_channel_spacing
 from .registry import get_kernel
 
@@ -90,6 +91,8 @@ def _accepts(workload: str, version: str, param: str) -> bool:
     return param in inspect.signature(get_kernel(workload, version).fn).parameters
 
 
+# the warnings' stacklevel counts the span's frame: they name the caller's caller
+@span("idg.stage.resolve")
 def _resolve(workload: str, version: str, params: IDGParams,
              obs: Observation, w_rank=None):
     """Apply the API-boundary correctness guards; returns (version, w_rank),
@@ -119,7 +122,7 @@ def _resolve(workload: str, version: str, params: IDGParams,
         warnings.warn(
             f"{workload} {version} assumes uniform channel spacing; "
             f"wavenumbers are non-uniform — falling back to {entry.fallback}",
-            stacklevel=3,
+            stacklevel=4,
         )
         version = entry.fallback
         entry = get_kernel(workload, version)
@@ -135,14 +138,14 @@ def _resolve(workload: str, version: str, params: IDGParams,
                     f"w_rank={w_rank} override is below the required rank {need} "
                     f"for this observation's w range (|mu*n| bound exceeds "
                     f"{W_TAYLOR_TOL:g}); results may miss the 1e-5 gate",
-                    stacklevel=3,
+                    stacklevel=4,
                 )
             return version, w_rank
         warnings.warn(
             f"{workload} {version} takes no w_rank"
             + (f" (fixed w-term rank {entry.fixed_w_rank})" if entry.fixed_w_rank else "")
             + f"; the w_rank={w_rank} override is ignored",
-            stacklevel=3,
+            stacklevel=4,
         )
     if takes_rank:
         if need is None:
@@ -168,7 +171,7 @@ def _resolve(workload: str, version: str, params: IDGParams,
             f"{workload} {version} is a rank-{entry.fixed_w_rank} w-free "
             f"specialization but the observation needs Taylor rank {need} — "
             f"falling back to {entry.fallback}",
-            stacklevel=3,
+            stacklevel=4,
         )
         return entry.fallback, (need if _accepts(workload, entry.fallback, "w_rank") else None)
     return version, None

@@ -24,6 +24,7 @@ import torch
 
 from ..config import IDGParams
 from ..types import Metadata, Observation
+from ..utils.trace import span
 
 TWO_PI = 2.0 * math.pi
 MAX_W_RANK = 6   # highest Taylor rank of e^{iμn} the kernels take
@@ -194,6 +195,7 @@ def _check_indices(params: IDGParams, obs: Observation) -> None:
             raise ValueError(f"metadata {name} out of range [0, {hi})")
 
 
+@span("idg.stage.copy")
 def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) -> Staged:
     """Stage an observation on `device` for the kernels. Its metadata is
     host numpy; its arrays are host numpy or tensors, those already on

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ...config import IDGParams
+from ...utils import trace
 from ..common import Staged, n_powers
 from ..grid import _finish_extract, dft_split_factors_on
 from ..registry import register
@@ -81,6 +82,7 @@ def degridder_plain(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
     "Taylor of e^{-iμn}); counterpart of pallas_v7",
     family="cuda", uniform_channels=False,
 )
+@trace.span("idg.degridder")
 def degridder_cuda_v7(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
                       w_rank: int = DEFAULT_W_RANK, fuse_oyx: torch.Tensor | None = None):
     """Degridder on a staging and c64[S, P, N, N] subgrids on the same
@@ -93,7 +95,9 @@ def degridder_cuda_v7(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
     non-fused kernel on ops/grid.py:_finish_extract(pieces, fuse_oyx).
 
     `degridder_cuda_v7.launches` counts kernel launches, and
-    `degridder_cuda_v7.fused_launches` those of the fused form."""
+    `degridder_cuda_v7.fused_launches` those of the fused form. While a
+    profiler records, one launch of the fused form in
+    utils/trace.py:PROBE_EVERY runs probed (utils/trace.py:probe)."""
     _check_staged(params, stg, w_rank)
     device = stg.device
     S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
@@ -122,7 +126,9 @@ def degridder_cuda_v7(params: IDGParams, stg: Staged, subgrids: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         if fused:
             wr = dft_split_factors_on(N, False, device)
+            probe = trace.probe("degridder_cuda_v7_fused", device)
             rc = lib.idg_degridder_v7_fused(*common, ptr(fuse_oyx), ptr(wr), ptr(out),
+                                            None if probe is None else ptr(probe),
                                             *sizes, stream)
         else:
             rc = lib.idg_degridder_v7(*common, ptr(out), *sizes, stream)

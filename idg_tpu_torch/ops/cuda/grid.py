@@ -17,6 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ...utils.trace import span
 from ..grid import (GridAddMergedPlan, GridAddPlan, GridAddRangePlan, _blocks_to_grid,
                     _gather_tiles, _roll_tiles, _scatter_add_tiles, _slot_sum)
 from . import build
@@ -50,6 +51,7 @@ def grid_add_plain(pieces: torch.Tensor, oyx: torch.Tensor, plan: GridAddRangePl
     return _scatter_add_tiles(tiles, cy, cx, grid_size)
 
 
+@span("idg.kernel.grid_add")
 def grid_add_cuda(pieces: torch.Tensor, oyx: torch.Tensor, plan: GridAddRangePlan,
                   grid_size: int) -> torch.Tensor:
     """Range grid-add of block-rolled pieces c64[S, P, N, N] (subgrids in
@@ -107,6 +109,7 @@ def grid_extract_plain(grid: torch.Tensor, coord_x: torch.Tensor, coord_y: torch
     return _roll_tiles(_gather_tiles(grid, cy, cx, n), cy % n, cx % n)
 
 
+@span("idg.grid_extract")
 def grid_extract_cuda(grid: torch.Tensor, coord_x: torch.Tensor, coord_y: torch.Tensor,
                       n: int) -> torch.Tensor:
     """Range extraction from a c64[P, G, G] grid: block-rolled pieces

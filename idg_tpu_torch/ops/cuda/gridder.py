@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ...config import IDGParams
+from ...utils import trace
 from ..common import MAX_W_RANK, Staged, n_powers
 from ..grid import dft_split_factors_on, pieces_from_subgrids
 from ..registry import register
@@ -216,6 +217,7 @@ def gridder_v6_pieces_plain(params: IDGParams, stg: Staged, oyx: torch.Tensor,
     return pieces_from_subgrids(gridder_plain(params, stg, w_rank), oyx)
 
 
+@trace.span("idg.gridder")
 def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
                            w_rank: int = DEFAULT_W_RANK):
     """`gridder_cuda_v6` with the grid stage's producer fused into the
@@ -224,7 +226,8 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
     ops/grid.py:subgrids_to_grid_ranges(tiles=...) adds into the grid.
     `oyx` is the i32[S, 2] per-subgrid roll (ops/grid.py:roll_offsets) on
     the staging's device. `gridder_cuda_v6_pieces.launches` counts kernel
-    launches."""
+    launches. While a profiler records, one launch in
+    utils/trace.py:PROBE_EVERY runs probed (utils/trace.py:probe)."""
     _check_staged(params, stg, w_rank)
     device = stg.device
     S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
@@ -239,6 +242,7 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
     if S == 0:
         return out
     wr = dft_split_factors_on(N, True, device)
+    probe = trace.probe("gridder_cuda_v6_pieces", device)
     lib = build.library()
     with torch.cuda.device(device):
         rc = lib.idg_gridder_v6_pieces(
@@ -246,6 +250,7 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
             ptr(stg.po_x), ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n),
             ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(oyx), ptr(wr), ptr(out),
+            None if probe is None else ptr(probe),
             S, T, C, N, stg.aterms.shape[1], w_rank,
             torch.cuda.current_stream(device).cuda_stream,
         )

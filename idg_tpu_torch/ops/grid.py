@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import get_env_var
+from ..utils.trace import span
 from .precision import split_tf32
 
 # --------------------------------------------------------------------------
@@ -469,6 +470,7 @@ def sorted_block_coords(coord_x, coord_y, grid_size: int, subgrid_size: int):
     return order, np.asarray(coord_x)[order], np.asarray(coord_y)[order]
 
 
+@span("idg.plan.sort_blocks")
 def sort_observation_blocks(obs, grid_size: int, subgrid_size: int):
     """(observation with block-sorted per-subgrid metadata, order). Sorting
     is free: metadata is host data and the kernels are per-subgrid
@@ -542,6 +544,7 @@ class GridAddRangePlan(_PlanCache):
         return self.cached(("stripe", device, lo, hi), make)
 
 
+@span("idg.plan.ranges")
 def plan_grid_add_ranges(coord_x, coord_y, grid_size: int,
                          subgrid_size: int) -> GridAddRangePlan:
     """Range plan from block-sorted host coords. For block b = (iy, ix) and
@@ -582,6 +585,7 @@ def plan_grid_add_ranges(coord_x, coord_y, grid_size: int,
     )
 
 
+@span("idg.plan.rolls")
 def roll_offsets(coord_x, coord_y, grid_size: int, subgrid_size: int) -> np.ndarray:
     """i32[S, 2] per-subgrid roll (coord_y % G % N, coord_x % G % N)."""
     g, n = grid_size, subgrid_size
@@ -712,6 +716,7 @@ ROUTE_KERNELS = {
 }
 
 
+@span("idg.grid_add")
 def subgrids_to_grid_ranges(sub, coord_x, coord_y, grid_size: int, apply_fft: bool = True,
                             grid_in: torch.Tensor | None = None,
                             plan: GridAddRangePlan | None = None,

@@ -17,24 +17,23 @@ min-of-windows headline hides by construction.
 
 The trace hook is the counterpart of ``idg_tpu/utils/timing.py:79-85,
 105-106, 131-132``: with `profile_dir=` or ``IDG_PROFILE_DIR`` set,
-`time_kernel`'s timed windows run inside `torch.profiler` (`trace_window`),
-which exports one Chrome trace per call for ``scripts/trace_tools_cuda.py``.
+`time_kernel`'s timed windows run inside `torch.profiler`
+(utils/trace.py:trace_window), which exports one Chrome trace per call for
+``scripts/trace_tools_cuda.py``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import glob
 import os
-import re
 import time
-from typing import Callable, Iterator, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..config import HarnessConfig
+from .trace import trace_window
 
 MIN_WINDOW_S = 0.05
 MAX_ITERATIONS = 4096
@@ -70,42 +69,6 @@ def _device_seconds(fn: Callable, args: tuple, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) * 1e-3
-
-
-def _trace_rank() -> int:
-    """This process's rank for a trace's file name: torch.distributed's when
-    a world is up, else the launcher's RANK, else 0."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return int(os.environ.get("RANK", "0"))
-
-
-@contextlib.contextmanager
-def trace_window(profile_dir: Optional[str], label: str = "fn") -> Iterator[Optional[str]]:
-    """Run the body inside `torch.profiler.profile` (CPU and CUDA activity,
-    no shapes or stacks, flops counted where the profiler can) and export
-    its Chrome trace into `profile_dir` as
-    ``<pid>-r<rank>-<n>-<label>.pt.trace.json``, n counting this process's
-    traces of that rank there, so that calls and ranks never share a file.
-    Yields the file's path; with no `profile_dir` it yields None and traces
-    nothing. The profile stops, and nothing is written, when the body
-    raises."""
-    if not profile_dir:
-        yield None
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(profile_dir, exist_ok=True)
-    stem = f"{os.getpid()}-r{_trace_rank()}"
-    n = len(glob.glob(os.path.join(glob.escape(profile_dir), f"{stem}-*.pt.trace.json")))
-    label = re.sub(r"[^A-Za-z0-9_.]+", "", label) or "fn"
-    path = os.path.join(profile_dir, f"{stem}-{n}-{label}.pt.trace.json")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=False, with_stack=False, with_flops=True) as prof:
-        yield path
-    prof.export_chrome_trace(path)
 
 
 def time_kernel(

@@ -10,7 +10,6 @@ Usage:
   python scripts/trace_tools_cuda.py <trace_dir_or_file> [--all] [--top N]
                                      [--name SUBSTR] [--gaps N] [--json]
   python scripts/trace_tools_cuda.py <trace_dir_or_file> --stats
-  python scripts/trace_tools_cuda.py <trace_dir_or_file> --flops [--peak-tflops X]
 
 A directory gives its newest *.pt.trace.json, or with --all every one of
 them (each call and each rank writes its own). Prints, per trace:
@@ -22,14 +21,13 @@ them (each call and each rank writes its own). Prints, per trace:
     and the idle share, 1 - busy/span;
   - the longest idle gaps on the busiest stream, each with the host event
     (cpu_op or cuda_runtime, the innermost of those that overlap it most)
-    that the host was in while the card waited, and the stream's idle time
-    summed by that host event over every gap.
+    that the host was in while the card waited and, chosen the same way,
+    the port's span (an `idg.*` range, idg_tpu_torch/utils/trace.py) it
+    was in, and the stream's idle time summed by host event and span over
+    every gap.
 --stats lists the `args` keys each event category carries, with an example
-value; --flops sums the `flops` args the profiler recorded over the busiest
-stream's span against a peak (an event without one counts no operations, so
-the hand-written kernels, which carry none, are claimed to do no work);
---json prints the same tables as one JSON line a trace. A trace with no
-device event exits non-zero.
+value; --json prints the same tables as one JSON line a trace. A trace
+with no device event exits non-zero.
 """
 
 from __future__ import annotations
@@ -38,16 +36,15 @@ import argparse
 import glob
 import json
 import os
-import pathlib
 import re
 import sys
 from collections import defaultdict
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-
 # event categories of the card's own work, and of the host's
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime")
+# the port's spans: profiler ranges whose names start so
+SPAN_CAT, SPAN_PREFIX = "user_annotation", "idg."
 
 # PERF.md's K-id of every __global__ in idg_tpu_torch/csrc/
 KERNEL_IDS = {
@@ -161,20 +158,14 @@ def per_stream(device: list) -> list:
     return sorted(rows, key=lambda r: -r["busy_ms"])
 
 
-def stream_gaps(device: list, host: list, stream: tuple) -> list:
-    """Every gap between the union of `stream`'s device intervals, in time
-    order, each {start_us, ms, host, host_cat}: the host event that overlaps
-    the gap most (the shortest of equals: the innermost). One sweep: a host
-    event joins the candidates when it starts before a gap's end and leaves
-    them once it ends before a gap's start."""
-    merged = merge_intervals((e["ts"], e["ts"] + e["dur"]) for e in device
-                             if _stream_key(e) == stream)
-    pending = sorted(host, key=lambda h: h["ts"])
+def _most_overlapping(intervals: list, events: list) -> list:
+    """For each (start, end) of the sorted disjoint `intervals`, the event
+    that overlaps it most (the shortest of equals: the innermost), or None.
+    One sweep: an event joins the candidates when it starts before an
+    interval's end and leaves them once it ends before an interval's start."""
+    pending = sorted(events, key=lambda h: h["ts"])
     i, active, out = 0, [], []
-    for a, b in zip(merged, merged[1:]):
-        start, end = a[1], b[0]
-        if end <= start:
-            continue
+    for start, end in intervals:
         while i < len(pending) and pending[i]["ts"] < end:
             active.append(pending[i])
             i += 1
@@ -184,21 +175,34 @@ def stream_gaps(device: list, host: list, stream: tuple) -> list:
             overlap = min(end, h["ts"] + h["dur"]) - max(start, h["ts"])
             if best is None or (overlap, -h["dur"]) > best[0]:
                 best = ((overlap, -h["dur"]), h)
-        out.append(dict(start_us=start, ms=(end - start) * 1e-3,
-                        host=best[1]["name"] if best else "",
-                        host_cat=best[1]["cat"] if best else ""))
+        out.append(best[1] if best else None)
     return out
 
 
+def stream_gaps(device: list, host: list, stream: tuple, spans: list = ()) -> list:
+    """Every gap between the union of `stream`'s device intervals, in time
+    order, each {start_us, ms, host, host_cat, span}: the host event and the
+    port's span (of `spans`, '' for none) that overlap the gap most."""
+    merged = merge_intervals((e["ts"], e["ts"] + e["dur"]) for e in device
+                             if _stream_key(e) == stream)
+    gaps = [(a[1], b[0]) for a, b in zip(merged, merged[1:]) if b[0] > a[1]]
+    return [dict(start_us=start, ms=(end - start) * 1e-3, host=h["name"] if h else "",
+                 host_cat=h["cat"] if h else "", span=sp["name"] if sp else "")
+            for (start, end), h, sp in zip(gaps, _most_overlapping(gaps, host),
+                                           _most_overlapping(gaps, list(spans)))]
+
+
 def idle_by_host(gaps: list) -> list:
-    """Rows {host, host_cat, ms, gaps}: the stream's idle time summed by the
-    host event each gap falls in, the largest first."""
+    """Rows {host, host_cat, span, ms, gaps}: the stream's idle time summed
+    by the host event and the port's span each gap falls in, the largest
+    first."""
     agg = defaultdict(lambda: [0.0, 0])
     for g in gaps:
-        agg[(g["host_cat"], g["host"])][0] += g["ms"]
-        agg[(g["host_cat"], g["host"])][1] += 1
-    return [dict(host=host, host_cat=cat, ms=ms, gaps=n)
-            for (cat, host), (ms, n) in sorted(agg.items(), key=lambda kv: -kv[1][0])]
+        key = (g["host_cat"], g["host"], g["span"])
+        agg[key][0] += g["ms"]
+        agg[key][1] += 1
+    return [dict(host=host, host_cat=cat, span=span, ms=ms, gaps=n)
+            for (cat, host, span), (ms, n) in sorted(agg.items(), key=lambda kv: -kv[1][0])]
 
 
 def arg_stats(events: list) -> dict:
@@ -210,32 +214,6 @@ def arg_stats(events: list) -> dict:
     return seen
 
 
-def flops_summary(events: list, span_ms: float, peak_tflops: float) -> dict:
-    """Σ flops args over the span, as a share of `peak_tflops`, and the
-    top events by flops {name, gflop, count}."""
-    agg = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        fl = e.get("args", {}).get("flops")
-        if fl:
-            agg[e["name"]][0] += float(fl)
-            agg[e["name"]][1] += 1
-    total = sum(f for f, _ in agg.values())
-    busy = total / (span_ms * 1e-3) / (peak_tflops * 1e12) if span_ms > 0 else 0.0
-    ops = [dict(name=name, gflop=f * 1e-9, count=c)
-           for name, (f, c) in sorted(agg.items(), key=lambda kv: -kv[1][0])]
-    return dict(gflop=total * 1e-9, peak_tflops=peak_tflops, busy_share=busy, ops=ops)
-
-
-def bf16_peak_tflops() -> float:
-    """The port's own bf16 tensor-core peak (idg_tpu_torch/utils/roofline.py:
-    NVIDIA H100 SXM, dense, at 700 W), in TFLOP/s."""
-    if str(ROOT) not in sys.path:
-        sys.path.insert(0, str(ROOT))
-    from idg_tpu_torch.utils.roofline import PEAK_FLOP_PER_S
-
-    return PEAK_FLOP_PER_S["bf16"] / 1e12
-
-
 def summarize(path: str, top: int = 25, name_filter: str = "", gaps: int = 5) -> dict:
     """The tables of one trace; raises ValueError when it has no device
     event (the CUDA activity recorded nothing)."""
@@ -245,14 +223,22 @@ def summarize(path: str, top: int = 25, name_filter: str = "", gaps: int = 5) ->
         raise ValueError(f"{path}: no device event ({', '.join(DEVICE_CATS)}); the CUDA "
                          "activity recorded nothing")
     host = [e for e in events if e.get("cat") in HOST_CATS]
+    spans = [e for e in events
+             if e.get("cat") == SPAN_CAT and e["name"].startswith(SPAN_PREFIX)]
     streams = per_stream(device)
     busiest = (streams[0]["device"], streams[0]["stream"])
-    every_gap = stream_gaps(device, host, busiest)
+    every_gap = stream_gaps(device, host, busiest, spans)
     return dict(trace=path, device_ms=sum(e["dur"] for e in device) * 1e-3,
                 ops=per_op(device, name_filter)[:top], streams=streams,
                 gaps=sorted(every_gap, key=lambda g: -g["ms"])[:gaps],
                 idle_by_host=idle_by_host(every_gap)[:top],
                 gap_stream=dict(device=busiest[0], stream=busiest[1]))
+
+
+def where(gap: dict) -> str:
+    """A gap's (or row's) host event, then the port's span it was in."""
+    host = f"{gap['host_cat']} {gap['host']}" if gap["host"] else "(no host event)"
+    return f"{host} [{gap['span']}]" if gap["span"] else host
 
 
 def print_summary(s: dict) -> None:
@@ -269,12 +255,10 @@ def print_summary(s: dict) -> None:
     g = s["gap_stream"]
     print(f"\n== longest idle gaps on ({g['device']}, {g['stream']})")
     for r in s["gaps"]:
-        host = f"{r['host_cat']} {r['host']}" if r["host"] else "(no host event)"
-        print(f"  {r['ms']:10.3f} ms at {r['start_us']:.1f} us: {host[:100]}")
-    print(f"\n== idle time by host event on ({g['device']}, {g['stream']})")
+        print(f"  {r['ms']:10.3f} ms at {r['start_us']:.1f} us: {where(r)[:120]}")
+    print(f"\n== idle time by host event and span on ({g['device']}, {g['stream']})")
     for r in s["idle_by_host"]:
-        host = f"{r['host_cat']} {r['host']}" if r["host"] else "(no host event)"
-        print(f"  {r['ms']:10.3f} ms in {r['gaps']:6d} gaps: {host[:100]}")
+        print(f"  {r['ms']:10.3f} ms in {r['gaps']:6d} gaps: {where(r)[:120]}")
 
 
 def main(argv=None) -> int:
@@ -287,11 +271,6 @@ def main(argv=None) -> int:
     ap.add_argument("--gaps", type=int, default=5, help="longest idle gaps to list")
     ap.add_argument("--stats", action="store_true",
                     help="list the args keys each event category records")
-    ap.add_argument("--flops", action="store_true",
-                    help="Σ of the recorded flops args over the busiest stream's span")
-    ap.add_argument("--peak-tflops", type=float, default=None,
-                    help="peak for --flops (default: the port's bf16 peak, "
-                         "idg_tpu_torch/utils/roofline.py)")
     ap.add_argument("--json", action="store_true", help="one JSON line a trace")
     args = ap.parse_args(argv)
 
@@ -308,20 +287,10 @@ def main(argv=None) -> int:
         except ValueError as exc:
             print(f"error: {exc}", file=sys.stderr)
             return 1
-        if args.flops:
-            s["flops"] = flops_summary(load_events(path), s["streams"][0]["span_ms"],
-                                       args.peak_tflops or bf16_peak_tflops())
         if args.json:
             print(json.dumps(s))
             continue
         print_summary(s)
-        if args.flops:
-            f = s["flops"]
-            print(f"\n== recorded flops: {f['gflop']:.2f} GFLOP over the busiest stream's "
-                  f"span, {100 * f['busy_share']:.2f}% of {f['peak_tflops']:.0f} TFLOP/s "
-                  "(events without a flops arg count none)")
-            for r in f["ops"][:args.top]:
-                print(f"  {r['gflop']:12.3f} GFLOP ×{r['count']:<7d} {r['name'][:90]}")
     return 0
 
 

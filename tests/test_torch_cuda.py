@@ -222,6 +222,53 @@ def test_grid_stage_launch_counters(card):
     assert kernels.degridder_cuda_v7.fused_launches == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["default", "n16"])
+def test_probed_k1_and_k2_match_unprobed_bitwise_and_sum_their_phases(card, problem):
+    """Under a profiler one launch in PROBE_EVERY of the fused K1 and K2
+    runs their probed instances (utils/trace.py:probe): the same output, bit
+    for bit, as the unprobed kernels, on the default problem (N = 32) and at
+    N = 16; the probe sums count every block of every probed launch, and
+    each phase lies inside its whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from idg_tpu_torch.data import make_perf_observation
+    from idg_tpu_torch.utils import trace
+
+    params = IDGParams() if problem == "default" else IDGParams(subgrid_size=16, **SMALL)
+    obs = make_perf_observation(params)
+    md = obs.metadata
+    stg = stage(params, obs, card)
+    oyx = torch.from_numpy(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size,
+                                              params.subgrid_size)).to(card)
+    rank = _resolve("gridder", "cuda_v6", params, obs)[1] or 2
+    trace.reset()
+
+    def both():
+        pieces = kernels.gridder_cuda_v6_pieces(params, stg, oyx, rank)
+        return pieces, kernels.degridder_cuda_v7(params, stg, pieces, rank, fuse_oyx=oyx)
+
+    plain = both()
+    assert trace.probe("gridder_cuda_v6_pieces", card) is None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for i in range(trace.PROBE_EVERY + 1):     # launches 0 and PROBE_EVERY run probed
+            got = both()
+            if i % trace.PROBE_EVERY == 0:
+                torch.cuda.synchronize()
+                for want, out in zip(plain, got):
+                    assert torch.equal(torch.view_as_real(want), torch.view_as_real(out))
+    torch.cuda.synchronize()
+    sums = trace.snapshot()["probes"]
+    assert set(sums) == {"gridder_cuda_v6_pieces", "degridder_cuda_v7_fused"}
+    for kernel, got in sums.items():
+        assert got["launches"] == 2, kernel
+        assert got["blocks"] == params.nr_subgrids * got["launches"], kernel
+        assert 0 < got["k3"] <= got["total"], (kernel, got)
+        assert 0 < got["loop"] <= got["total"], (kernel, got)
+        assert got["tc_wait"] <= got["loop"] and got["form_wait"] <= got["loop"], (kernel, got)
+    trace.reset()
+
+
 def _piece_problem(n, g, s):
     """Block-sorted coordinates with ten subgrids on the last block column
     (so that merged groups have wrap misses) and c64 uv subgrids."""
