@@ -100,11 +100,15 @@ non-zero:
  12. redesign the redesigned K1 (gridder cuda_v6, TF32 wgmma) and K10: ptxas
               registers and spills and the cuobjdump HGMMA count of every
               K1 instance (each must have some, each fused instance more
-              than its non-fused one: K3); K1, both forms, against
-              the f64 oracle at w = 0, at rank 4, at C = 48, on non-uniform
-              wavenumbers (cuda_v6, no fallback) and on a ragged V, with
-              counted launches (4e-6); K1, both forms, against its plain
-              version on the first 512 default subgrids (3e-6) and timed;
+              than its non-fused one: K3; N = 32 takes the turned product,
+              N = 16 the transposed one); K1, both forms, at N = 32 and 16,
+              against the f64 oracle at w = 0, at rank 4, at C = 48, on
+              non-uniform wavenumbers (cuda_v6, no fallback) and on a
+              ragged V, with counted launches (4e-6; N = 16, whose float32
+              plain version itself misses that, 1e-5), and against its
+              plain version at every rank 1-6 on w != 0 data (3e-6); K1,
+              both forms, against its plain version on the first 512
+              default subgrids (3e-6) and timed;
               K10 exactly against torch.add at n = 2^28 and at sizes off
               its chunk boundaries, aligned and misaligned, then timed
               beside torch.add; and the phase's seconds
@@ -1447,9 +1451,12 @@ def sass_counts(library: str, pattern: str, opcode: str) -> dict:
 def redesign_phase(rows, timing):
     """Phase 12: the redesigned K1 (gridder cuda_v6, TF32 wgmma) and K10
     (vadd): ptxas lines and HGMMA counts of every K1 instance; K1, both
-    forms, against the f64 oracle at w = 0, rank 4, C = 48, on non-uniform
-    wavenumbers (no fallback) and on a ragged V, with counted launches; K1
-    against its plain version on the first 512 default subgrids; K10 exactly
+    forms, at N = 32 (the turned product) and N = 16, against the f64 oracle
+    at w = 0, rank 4, C = 48, on non-uniform wavenumbers (no fallback) and
+    on a ragged V, with counted launches (N = 16 at the check mode's gate,
+    GATE), and against its plain version at every rank 1-6 on w != 0 data;
+    K1 against its plain version on the
+    first 512 default subgrids; K10 exactly
     against torch.add at n = 2^28 and at sizes off its chunk boundaries,
     aligned and misaligned; then both timed."""
     import dataclasses
@@ -1467,23 +1474,30 @@ def redesign_phase(rows, timing):
     from idg_tpu_torch.utils.compare import check_error
 
     t_start = time.perf_counter()
+    # every instance's registers and spills: N = 32 takes the turned product
+    # (two consumer warpgroups, setmaxnreg in the tile loop), N = 16 the
+    # transposed one
     instance_report("redesign", "K1", r"\d+gridder_kernel", flag_adds=True)
 
-    # K1, both forms, against the f64 oracle on the correctness problem
-    params = IDGParams.correctness_defaults()
-    obs0, _ = make_observation(params)
-    params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
-    params_c = dataclasses.replace(params, nr_channels=RESYNC_CHANNELS)
-    obs_c, _ = make_observation(params_c)
-    k = np.array(obs0.wavenumbers, copy=True)
-    k[-1] *= 1.05
-    obs_nu = dataclasses.replace(obs0, wavenumbers=k)
-    params_r = dataclasses.replace(params, nr_timesteps_subgrid=37, nr_channels=7)
-    obs_r, _ = make_observation(params_r)
-    for label, p, obs in (("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w),
-                          (f"C = {RESYNC_CHANNELS}", params_c, obs_c),
-                          ("non-uniform channels", params, obs_nu),
-                          ("ragged V = 37·7", params_r, obs_r)):
+    # K1, both forms, against the f64 oracle on the correctness problem, at
+    # N = 32 and N = 16
+    problems = []
+    for n_sub in (32, 16):
+        params = IDGParams.correctness_defaults(subgrid_size=n_sub)
+        obs0, _ = make_observation(params)
+        params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+        params_c = dataclasses.replace(params, nr_channels=RESYNC_CHANNELS)
+        obs_c, _ = make_observation(params_c)
+        k = np.array(obs0.wavenumbers, copy=True)
+        k[-1] *= 1.05
+        obs_nu = dataclasses.replace(obs0, wavenumbers=k)
+        params_r = dataclasses.replace(params, nr_timesteps_subgrid=37, nr_channels=7)
+        obs_r, _ = make_observation(params_r)
+        problems += [(f"N = {n_sub} {label}", p, obs) for label, p, obs in (
+            ("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w),
+            (f"C = {RESYNC_CHANNELS}", params_c, obs_c), ("non-uniform channels", params, obs_nu),
+            ("ragged V = 37·7", params_r, obs_r))]
+    for label, p, obs in problems:
         version, rank = _resolve("gridder", "cuda_v6", p, obs)
         rank = rank or 2
         md = obs.metadata
@@ -1496,17 +1510,50 @@ def redesign_phase(rows, timing):
         torch.cuda.synchronize()
         launched = {name: n for name, n in launch_counts().items() if n}
         oracle = torch.from_numpy(gridder_reference(p, obs))
+        oracle_f = tgrid.pieces_from_subgrids(oracle, oyx)
         err = check_error(sub, oracle, verbose=False).mean_error
-        err_f = check_error(pieces, tgrid.pieces_from_subgrids(oracle, oyx),
-                            verbose=False).mean_error
-        ok = (version == "cuda_v6" and max(err, err_f) <= K1_ORACLE_GATE
+        err_f = check_error(pieces, oracle_f, verbose=False).mean_error
+        # N = 16 at the check mode's gate: its float32 plain version itself
+        # misses K1_ORACLE_GATE on this problem (printed beside)
+        gate = K1_ORACLE_GATE if p.subgrid_size == 32 else GATE
+        plain = ""
+        if p.subgrid_size != 32:
+            own = check_error(kernels.gridder_plain(p, stage(p, obs, "cpu"), rank), oracle,
+                              verbose=False).mean_error
+            plain = f", plain version (CPU) {own:.3e}"
+        ok = (version == "cuda_v6" and max(err, err_f) <= gate
               and (rank >= 4) == ("rank 4" in label)
               and launched == {"gridder_cuda_v6": 1, "gridder_cuda_v6_pieces": 1})
         phase("redesign", f"K1 {label}: resolved ({version}, {rank}), mean_error {err:.3e}, "
-                          f"fused {err_f:.3e} (gate {K1_ORACLE_GATE:g}), launches {launched} "
+                          f"fused {err_f:.3e} (gate {gate:g}{plain}), launches {launched} "
                           f"{'PASSED' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError(f"K1 {label} failed")
+
+    # K1, both forms, against its plain version at every rank 1-6 on the
+    # correctness problem's w != 0 data, at N = 32 and N = 16
+    for n_sub in (32, 16):
+        p, obs, _ = make_w_observation(IDGParams.correctness_defaults(subgrid_size=n_sub),
+                                       w_scale=1000.0)
+        md = obs.metadata
+        oyx = torch.as_tensor(tgrid.roll_offsets(md.coord_x, md.coord_y, p.grid_size, n_sub),
+                              device="cuda")
+        stg = stage(p, obs, "cuda")
+        errs = []
+        for rank in range(1, 7):
+            errs.append(max(
+                check_error(kernels.gridder_cuda_v6(p, stg, rank),
+                            kernels.gridder_plain(p, stg, rank), verbose=False).mean_error,
+                check_error(kernels.gridder_cuda_v6_pieces(p, stg, oyx, rank),
+                            kernels.gridder_v6_pieces_plain(p, stg, oyx, rank),
+                            verbose=False).mean_error))
+        ok = max(errs) <= K1_PLAIN_GATE
+        phase("redesign", f"K1 N = {n_sub} vs plain at ranks 1-6, both forms: mean_error "
+                          + ", ".join(f"{e:.3e}" for e in errs)
+                          + f" (gate {K1_PLAIN_GATE:g}) {'PASSED' if ok else 'FAILED'}")
+        if not ok:
+            raise RuntimeError(f"K1 N = {n_sub} disagrees with its plain version at some rank")
+        del stg
 
     # K1 against its plain version on the first 512 default subgrids, both
     # forms, then both timed on the full problem

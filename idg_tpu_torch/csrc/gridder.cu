@@ -14,19 +14,35 @@
 // What bounds it on an H100: the product, 4 real GEMMs of 2N × V × 2NP per
 // subgrid and pass. At the default problem (rank 2, N = 32, V = 2048) it is
 // 4 TF32 passes × 67.1 MFLOP × 24,500 subgrids = 6.6e12 FLOP, 13.3 ms at
-// 495 TFLOP/s; around it ~5.8 M CUDA-core instructions a subgrid (131,072
-// exact sincosf, W, the lhs and their split), ~4 ms if alone. Its bytes
-// (2.4 GB) take 0.72 ms. The reference's operation model (1.779e12 FLOP a
-// pass) over the TF32 peak gives 3.594 ms, fused 3.699.
+// 495 TFLOP/s (2,050 cycles of each 32-visibility tile, 11,879 tiles an
+// SM); around it ~5.8 M CUDA-core instructions a subgrid (131,072 exact
+// sincosf, W, the lhs and their split), ~4 ms if alone. Its bytes (2.4 GB)
+// take 0.72 ms. The reference's operation model (1.779e12 FLOP a pass) over
+// the TF32 peak gives 3.594 ms, fused 3.699. On the card neither binds:
+// builds of the transposed kernel that dropped a role (PERF.md §6) took,
+// of its 46.6 ms fused, 42.1 with the producers alone, 32.4 with the
+// consumers alone and 16.0 with neither (the barriers and the folds). The
+// formation, on 8 producer warps that wait on their own latencies, set the
+// pace (~7,710 cycles a tile), not the shared-memory data path.
 //
 // Design:
-//  - The product transposed, outᵀ[2NP × 2N] = Wᵀ · lhs_r, so the 64-row
-//    wgmma operand is W (256 rows at N = 32, 128 at N = 16): both subgrid
-//    sizes fill whole warpgroups, and W, formed once a tile, serves every
-//    rank. Each warpgroup owns a 64-row slab (8 (x, p) pairs per warp, real
-//    rows then imaginary rows), so a thread's accumulators hold all four real
-//    products of its complex outputs: W rows (q, re|im), q = p·N + x; lhs
-//    rows (re|im)·N + y.
+//  - At N = 32 the product is turned around, out[2N × 2NP] = lhs_rᵀ · W:
+//    the lhs (64 rows (y, re | im)) is the m64 operand A, and W's 256 rows
+//    (q = p·N + x, re | im) are B's columns, 128 for each of two consumer
+//    warpgroups, m64n128k8: 32 wgmma a tile at rank 2 where the transposed
+//    form took 64 m64n64k8 (four warpgroups, each reading all of the lhs).
+//    The tensor cores read 192 KB of operands a tile instead of 256 KB; the
+//    producers store the same 88 KB; the fold's weights n[y][x], 8 a thread,
+//    stay in registers instead of 512 L1 wavefronts a tile, so a tile moves
+//    ~280 KB through the L1/shared data path where it moved ~420 KB. Both
+//    operands keep W's layout (wgmma.cuh's core matrices), A's and B's
+//    8-row groups alternating between the real and the imaginary parts, so
+//    a thread's accumulators hold all four real products of its outputs.
+//    N = 16 keeps the transposed form, outᵀ = Wᵀ · lhs_r (a 64-row slab of
+//    W a warpgroup, lhs rows (re | im)·N + y): its lhs has 32 rows and
+//    cannot fill an m64 operand. wgmma.cuh's helpers for it:
+//    wgmma_tf32 on D 64×128, the m64n128k8 step, and split_tf32_bits,
+//    split_tf32's values on the integer pipe (below).
 //  - TF32 in three passes: x = hi + lo, hi = tf32(x), lo = tf32(x − hi),
 //    and lo·hi + hi·lo + hi·hi into float32 (~22 bits of each operand, so
 //    gridder_plain, float32 "highest", stays the reference). Rank 1 at
@@ -35,39 +51,43 @@
 //  - The tensor cores' float32 accumulation truncates, so each tile's sum
 //    (32 visibilities) is folded into a running sum in round-to-nearest
 //    FADDs, with the rank combine Σ_r n^r folded in: the running sum is one
-//    complex value per output pixel and pol (8 or 4 a thread, in
-//    registers), whatever the rank. One rank's accumulators (32 or 16
-//    registers) are live at a time: ranks are issued, waited for and folded
-//    one after another.
+//    complex value per output pixel and pol (16 a thread at N = 32, 4 at
+//    N = 16, in registers), whatever the rank. One rank's accumulators (64
+//    or 16 registers) are live at a time: ranks are issued, waited for and
+//    folded one after another.
 //  - Warp specialization, so that the formation of the next tile overlaps
 //    the products of this one: one block per subgrid holds the consumer
-//    warpgroups, one per slab, which issue the products and fold them, and
-//    after them N·8 producer threads, which form the tiles (768 threads at
-//    N = 32, 384 at N = 16; 80 registers, a 24 B spill at N = 32). A
-//    producer owns one x and one y and 4 visibilities: two exact sincosf
-//    each (no fast math), W = Φx · vis for the four pols, the lhs of every
-//    rank, and their split. Warps that issued wgmma and formed tiles in
-//    turn overlapped the two little: a warp stalls on the tensor cores'
-//    queue before it reaches its share of the formation. The roles come
-//    through a warp shuffle and the formation branches on nothing else of
-//    the thread (selects mask the ragged tile): ptxas serializes wgmma
-//    around a divergent path. One barrier a tile hands the stages over:
-//    two stages fit 227 KB of shared memory up to rank 3 at N = 32; above
-//    that the formation follows the products. The visibilities and μ
-//    arrive by cp.async into a two-slot ring a tile ahead of the
-//    formation; uvw and k (< 2 KB a subgrid) are read through L1.
+//    warpgroups, which issue the products and fold them, and after them
+//    N·8 producer threads, which form the tiles (512 threads at N = 32, 128
+//    registers and no spill; 384 at N = 16, 80 registers). A producer owns
+//    one x and one y and 4 visibilities: two exact sincosf each (no fast
+//    math), W = Φx · vis for the four pols, the lhs of every rank, and
+//    their split (at N = 32 on the bits, wgmma.cuh:split_tf32_bits: the
+//    same values in five instructions instead of nine). At N = 32
+//    each role runs its own tile loop and the producers leave after theirs,
+//    so that the consumers' 64 accumulators, 32 running sums and 8 weights
+//    fit ptxas's 128 registers: setmaxnreg cannot lend them the producers'
+//    (ptxas keeps every instruction under the launch bound's registers),
+//    which keeps both a third producer warpgroup and wgmma's A from
+//    registers (32 more) out. The roles come through a warp shuffle and the
+//    formation branches on nothing else of the thread (selects mask the
+//    ragged tile): ptxas serializes wgmma around a divergent path. One
+//    barrier a tile hands the stages over: two stages fit 227 KB of shared
+//    memory up to rank 3 at N = 32; above that the formation follows the
+//    products. The visibilities and μ arrive by cp.async into a two-slot
+//    ring a tile ahead of the formation; uvw and k (< 2 KB a subgrid) are
+//    read through L1.
 //  - Operands in shared memory as unswizzled 8×16 B core matrices
 //    (wgmma.cuh), written by 16-byte stores with consecutive lanes on
 //    consecutive rows, so neither the formation nor the tensor cores meet
 //    bank conflicts.
-//  - Against the 13.3 ms product floor it runs at about 30% of the TF32
-//    rate (PERF.md). The formation alone does not bind it: the phase probes
-//    (below) read consumer warp 0 waiting 0.25% of the tile loop at its
-//    barriers and the first producer warp 0.69% (default problem, H100), so
-//    both roles end each tile within some dozens of cycles of each other;
-//    the shared-memory traffic of both operands, read by every pass, and
-//    the issue slots they share are the candidates.
-//
+//  - On the card (default problem, H100, PERF.md §6) the fused form takes
+//    36.1 ms, ~6,020 cycles a tile (transposed: 46.3 ms, ~7,710). Builds
+//    that dropped a role took 29.5 ms with the producers alone, 23.9 with
+//    the consumers alone and 10.8 with neither, so the formation still sets
+//    the pace, though the phase probes read the tensor-core warps waiting
+//    only 0.78% of the tile loop at its barriers (0.25% transposed).
+
 // Fused epilogue (kFuse): the Jones/taper epilogue writes the subgrid split
 // into K3's operand (dft.cuh), and K3 applies the inverse folded-shift DFT
 // to all four pols at once on the TF32 tensor cores, on the first two
@@ -79,7 +99,8 @@
 // K3's operand and its factors take 130 KB at N = 32: the smallest block
 // (rank 4, one stage and the raw slots, both free by then) has that. K3's
 // factors come split from the host by cp.async, started before the
-// epilogue's pixels are formed.
+// epilogue's pixels are formed. At N = 32 the consumers alone run the
+// epilogue and K3, meeting at a named barrier.
 //
 // Phase probes (kProbe, the fused form only; probe.cuh): the entry point
 // given an accumulator launches the probed instance, which sums each
@@ -107,15 +128,23 @@ constexpr int kRawBytes = kKT * kPols * (int)sizeof(float2) + kKT * (int)sizeof(
 
 template <int N>
 struct Tile {
-  static constexpr int kRowsW = 2 * N * kPols;   // A = Wᵀ: (q = p·N + x, re | im)
-  static constexpr int kRowsL = 2 * N;           // B = lhs_r: (re | im)·N + y
-  static constexpr int kGroups = kRowsW / 64;    // warpgroups, one 64-row slab each
+  // At N = 32 the product is turned around, out = lhs_rᵀ · W: the lhs is the
+  // 64-row operand and W the 256 columns, split over two warpgroups. At
+  // N = 16 the lhs has 32 rows and W stays the 64-row operand (outᵀ = Wᵀ ·
+  // lhs_r, a 64-row slab of W a warpgroup).
+  static constexpr bool kTurned = N == 32;
+  static constexpr int kRowsW = 2 * N * kPols;   // W: (q = p·N + x, re | im)
+  static constexpr int kRowsL = 2 * N;           // lhs_r: (re | im)·N + y, or (y, re | im) turned
+  static constexpr int kGroups = kTurned ? 2 : kRowsW / 64;   // consumer warpgroups
   static constexpr int kConsumers = 128 * kGroups;  // the products and the fold
   static constexpr int kProducers = N * kKC;        // the formation: one (a, K chunk) each
   static constexpr int kThreads = kConsumers + kProducers;
   static constexpr int kMinBlocks = N == 16 ? 2 : 1;
-  static constexpr int kAcc = 64 * kRowsL / 128;  // accumulator floats a thread, a rank
-  static constexpr int kOut = N / 4;              // complex outputs a thread
+  static constexpr int kColsW = kRowsW / kGroups;   // W's columns a warpgroup, turned
+  // accumulator floats a thread, a rank
+  static constexpr int kAcc = kTurned ? 64 * kColsW / 128 : 64 * kRowsL / 128;
+  static constexpr int kOut = N * N * kPols / kConsumers;   // complex outputs a thread
+  static_assert(!kTurned || kRowsL == 64, "the turned product's lhs fills one m64 operand");
   static constexpr int kBytesW = kRowsW * kKT * 4;  // one of hi, lo
   static constexpr int kBytesL = kRowsL * kKT * 4;  // one of hi, lo, a rank
   // a stage: W hi, W lo, then the lhs hi of every rank, then their lo
@@ -151,6 +180,56 @@ __device__ __forceinline__ void mma_rank(const unsigned char* stage, int slab, i
         acc, ks == 0, idg::smem_desc(w_hi + off, kLBO, kSBO),
         idg::smem_desc(w_hi + TL::kBytesW + off, kLBO, kSBO), idg::smem_desc(l_hi + off, kLBO, kSBO),
         idg::smem_desc(l_hi + (size_t)w_rank * TL::kBytesL + off, kLBO, kSBO));
+  }
+}
+
+// The same turned around (Tile<N>::kTurned): A = lhs_r, B = warpgroup wg's
+// half of W's rows as its columns, m64n128k8. The steps' descriptors are the
+// first ones plus the steps' offsets (the address field is the byte address
+// / 16 and stays below 2^14).
+template <int N, bool kThree>
+__device__ __forceinline__ void mma_rank_turned(const unsigned char* stage, int wg, int r,
+                                                int w_rank, float (&acc)[Tile<N>::kAcc]) {
+  using TL = Tile<N>;
+  const unsigned char* l_hi = stage + 2 * TL::kBytesW + (size_t)r * TL::kBytesL;
+  const unsigned char* w_hi = stage + wg * (TL::kColsW / 8) * kSBO;
+  const uint64_t ah = idg::smem_desc(l_hi, kLBO, kSBO);
+  const uint64_t al = idg::smem_desc(l_hi + (size_t)w_rank * TL::kBytesL, kLBO, kSBO);
+  const uint64_t bh = idg::smem_desc(w_hi, kLBO, kSBO);
+  const uint64_t bl = idg::smem_desc(w_hi + TL::kBytesW, kLBO, kSBO);
+#pragma unroll
+  for (int ks = 0; ks < kKT / 8; ++ks) {
+    const uint64_t off = ks * 2 * 128 / 16;   // two K chunks a k8 step
+    idg::mma_tf32_step<kThree>(acc, ks == 0, ah + off, al + off, bh + off, bl + off);
+  }
+}
+
+// The turned fold: wait for this warpgroup's products of rank r and add
+// them into the running sum, weighted by n^r. A's rows (y, re | im) and B's
+// columns (q, re | im) both alternate by groups of 8, so accumulator
+// 4j + 2h + e holds row y = 8·warp + g (h: re | im), column 8j + 2t + e:
+// q = 64·wg + 8(j / 2) + 2t + e (j & 1: re | im). out = (AreBre − AimBim) +
+// i(AreBim + AimBre) lands in sum[2i + e], q = 64·wg + 8i + 2t + e, and
+// nw[2(i % 4) + e] is n[y][x] of its x = q % 32, held through the tile loop.
+__device__ __forceinline__ void fold_rank_turned(int r, const float (&nw)[8], float (&acc)[64],
+                                                 float2 (&sum)[16]) {
+  float w[8];   // n^r, formed while the products run
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    w[i] = 1.0f;
+    for (int q = 0; q < r; ++q) w[i] *= nw[i];
+  }
+  idg::wgmma_wait<0>();
+  idg::fence_regs(acc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float re = acc[8 * i + e] - acc[8 * i + 6 + e];
+      const float im = acc[8 * i + 4 + e] + acc[8 * i + 2 + e];
+      sum[2 * i + e].x = fmaf(w[2 * (i & 3) + e], re, sum[2 * i + e].x);
+      sum[2 * i + e].y = fmaf(w[2 * (i & 3) + e], im, sum[2 * i + e].y);
+    }
   }
 }
 
@@ -225,8 +304,16 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   // One producer's share of a tile: Φx and Φy of its a at its 4
   // visibilities (0 past V, by selects), W = Φx · vis for the 4 pols, rows
   // (q = p·N + a, re | im), and the lhs of every rank, Φy · (iμ)^r/r!, rows
-  // (re | im)·N + a.
+  // (re | im)·N + a, or turned (a, re | im).
   auto form = [&](int tile, int slot, int buf) {
+    // turned, the split on the bits (the same values in fewer instructions)
+    const auto split = [](float x, float& hi, float& lo) {
+      if constexpr (TL::kTurned) {
+        split_tf32_bits(x, hi, lo);
+      } else {
+        split_tf32(x, hi, lo);
+      }
+    };
     const int v0 = tile * kKT, nv = min(kKT, V - v0);
     float* base = reinterpret_cast<float*>(smem + buf * stage_bytes);
     const float2* rvis = reinterpret_cast<const float2*>(raw + slot * kRawBytes);
@@ -258,13 +345,18 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
       float rh[4], rl[4], ih[4], il[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 w = cmul(phx[i], rvis[(kc * 4 + i) * kPols + p]);
-        split_tf32(w.x, rh[i], rl[i]);
-        split_tf32(w.y, ih[i], il[i]);
-        rh[i] = live[i] ? rh[i] : 0.0f;   // past V: zeros, whatever the stale slot held
-        rl[i] = live[i] ? rl[i] : 0.0f;
-        ih[i] = live[i] ? ih[i] : 0.0f;
-        il[i] = live[i] ? il[i] : 0.0f;
+        // past V: zeros, whatever the stale slot held (turned, by one select
+        // of the visibility: Φx is 0 there, so the product is +0 as well)
+        const float2 v = rvis[(kc * 4 + i) * kPols + p];
+        const float2 w = cmul(phx[i], TL::kTurned && !live[i] ? make_float2(0.0f, 0.0f) : v);
+        split(w.x, rh[i], rl[i]);
+        split(w.y, ih[i], il[i]);
+        if constexpr (!TL::kTurned) {
+          rh[i] = live[i] ? rh[i] : 0.0f;
+          rl[i] = live[i] ? rl[i] : 0.0f;
+          ih[i] = live[i] ? ih[i] : 0.0f;
+          il[i] = live[i] ? il[i] : 0.0f;
+        }
       }
       const int q = p * N + a, row = (q >> 3) * 16 + (q & 7);
       const int re = core_index(row, kc * 4, kKC), im = core_index(row + 8, kc * 4, kKC);
@@ -275,7 +367,10 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     }
     float* l_hi = base + 2 * TL::kBytesW / 4;
     float* l_lo = l_hi + (size_t)w_rank * TL::kBytesL / 4;
-    const int re = core_index(a, kc * 4, kKC), im = core_index(N + a, kc * 4, kKC);
+    // turned: 8 y of the real part, then the same 8 y of the imaginary
+    const int row = TL::kTurned ? (a >> 3) * 16 + (a & 7) : a;
+    const int re = core_index(row, kc * 4, kKC);
+    const int im = core_index(TL::kTurned ? row + 8 : N + a, kc * 4, kKC);
 #pragma unroll
     for (int r = 0; r < kMaxWRank; ++r) {
       if (r < w_rank) {
@@ -283,8 +378,8 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float2 lv = cmul(phy[i], coef[i]);
-          split_tf32(lv.x, rh[i], rl[i]);
-          split_tf32(lv.y, ih[i], il[i]);
+          split(lv.x, rh[i], rl[i]);
+          split(lv.y, ih[i], il[i]);
           // (iμ)^{r+1}/(r+1)! = (iμ)^r/r! · iμ/(r+1), by a constant
           // reciprocal: a division would branch on the data
           const float g = mu_i[i] * (1.0f / (r + 1));
@@ -302,16 +397,21 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     }
   };
 
-  // the consumer's outputs (fold) and its warpgroup's slab
+  // the consumer's outputs (fold) and its warpgroup's slab; turned, the
+  // accumulators and running sums live in the consumers' branch alone
   const int q_out = tid >> 2, t4 = tid & 3;
   const int x_out = q_out % N, p_out = q_out / N;
   const int slab = tid / 128;
   float acc[TL::kAcc];
-#pragma unroll
-  for (int i = 0; i < TL::kAcc; ++i) acc[i] = 0.0f;
   float2 sum[TL::kOut];
+  if constexpr (!TL::kTurned) {
 #pragma unroll
-  for (int o = 0; o < TL::kOut; ++o) sum[o] = make_float2(0.0f, 0.0f);
+    for (int i = 0; i < TL::kAcc; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int o = 0; o < TL::kOut; ++o) sum[o] = make_float2(0.0f, 0.0f);
+  }
+  constexpr int kLdPix = kFuse ? TL::kLdPix : N;
+  float2* s_pix = reinterpret_cast<float2*>(smem);   // the epilogue's pixels, over stage 0
 
   // prologue: the raw data of tiles 0 and 1, then tile 0 formed in stage 0
   if (producer) {
@@ -327,64 +427,138 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   __syncthreads();
 
   // Tile j: the consumers multiply and fold it while the producers form
-  // tile j + 1 in the other stage (after it, with one stage)
-  loop = probe_clock<kProbe>();
-  for (int j = 0; j < nt; ++j) {
+  // tile j + 1 in the other stage (after it, with one stage). Turned, each
+  // role runs its own loop and the producers leave after theirs: the
+  // consumers alone run the epilogue, and their accumulators, running sums
+  // and weights live in their branch alone, so that they fit ptxas's 128
+  // registers without a spill.
+  if constexpr (TL::kTurned) {
     if (producer) {
-      // raw slot j & 1 held tile j's data, formed before the last barrier
-      if (j + 2 < nt) stage_raw(j + 2, j & 1);
-      if (stages == 2 && j + 1 < nt) form(j + 1, (j + 1) & 1, (j + 1) & 1);
-      cp_async_wait_all();
-      fence_async_smem();
-    } else {
-      const unsigned char* stage = smem + (j % stages) * stage_bytes;
-      for (int r = 0; r < w_rank; ++r) {
-        fence_regs(acc);
-        wgmma_fence();
-        if (idg::three_passes(r, w_rank)) {
-          mma_rank<N, true>(stage, slab, r, w_rank, acc);
-        } else {
-          mma_rank<N, false>(stage, slab, r, w_rank, acc);
+      for (int j = 0; j < nt; ++j) {
+        if (j + 2 < nt) stage_raw(j + 2, j & 1);
+        if (stages == 2 && j + 1 < nt) form(j + 1, (j + 1) & 1, (j + 1) & 1);
+        cp_async_wait_all();
+        fence_async_smem();
+        probed_sync<kProbe>(waited);
+        if (stages == 1 && j + 1 < nt) {
+          form(j + 1, (j + 1) & 1, 0);
+          fence_async_smem();
+          probed_sync<kProbe>(waited);
         }
-        wgmma_commit();
-        fold_rank<N>(r, n, x_out, t4, acc, sum);
+      }
+      if constexpr (kProbe) {
+        probe_add(probe, tid, kCons, probe_clock<kProbe>() - t_entry, 0, 0, waited);
+      }
+      return;
+    }
+    {
+      // this thread's outputs: y, and x = 8(i % 4) + 2·t4 + e of pol
+      // 2·slab + i / 4 in sum[2i + e]; nw[2(i % 4) + e] = n[y][x]
+      const int y = (tid & 127) / 32 * 8 + (tid & 31) / 4;
+      float nw[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) nw[i] = n[y * N + 8 * (i / 2) + 2 * t4 + i % 2];
+#pragma unroll
+      for (int i = 0; i < TL::kAcc; ++i) acc[i] = 0.0f;
+#pragma unroll
+      for (int o = 0; o < TL::kOut; ++o) sum[o] = make_float2(0.0f, 0.0f);
+      loop = probe_clock<kProbe>();
+      for (int j = 0; j < nt; ++j) {
+        const unsigned char* stage = smem + (j % stages) * stage_bytes;
+        for (int r = 0; r < w_rank; ++r) {
+          fence_regs(acc);
+          wgmma_fence();
+          if (idg::three_passes(r, w_rank)) {
+            mma_rank_turned<N, true>(stage, slab, r, w_rank, acc);
+          } else {
+            mma_rank_turned<N, false>(stage, slab, r, w_rank, acc);
+          }
+          wgmma_commit();
+          fold_rank_turned(r, nw, acc, sum);
+        }
+        probed_sync<kProbe>(waited);
+        if (stages == 1 && j + 1 < nt) probed_sync<kProbe>(waited);
+      }
+      loop = probe_clock<kProbe>() - loop;
+      // every stage is free: the running sums into the epilogue's pixels
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int p = 2 * slab + i / 4, x = 8 * (i & 3) + 2 * t4 + e;
+          s_pix[(p * N + y) * kLdPix + x] = sum[2 * i + e];
+        }
       }
     }
-    probed_sync<kProbe>(waited);
-    if (stages == 1 && j + 1 < nt) {
+  } else {
+    loop = probe_clock<kProbe>();
+    for (int j = 0; j < nt; ++j) {
       if (producer) {
-        form(j + 1, (j + 1) & 1, 0);
+        // raw slot j & 1 held tile j's data, formed before the last barrier
+        if (j + 2 < nt) stage_raw(j + 2, j & 1);
+        if (stages == 2 && j + 1 < nt) form(j + 1, (j + 1) & 1, (j + 1) & 1);
+        cp_async_wait_all();
         fence_async_smem();
+      } else {
+        const unsigned char* stage = smem + (j % stages) * stage_bytes;
+        for (int r = 0; r < w_rank; ++r) {
+          fence_regs(acc);
+          wgmma_fence();
+          if (idg::three_passes(r, w_rank)) {
+            mma_rank<N, true>(stage, slab, r, w_rank, acc);
+          } else {
+            mma_rank<N, false>(stage, slab, r, w_rank, acc);
+          }
+          wgmma_commit();
+          fold_rank<N>(r, n, x_out, t4, acc, sum);
+        }
       }
       probed_sync<kProbe>(waited);
+      if (stages == 1 && j + 1 < nt) {
+        if (producer) {
+          form(j + 1, (j + 1) & 1, 0);
+          fence_async_smem();
+        }
+        probed_sync<kProbe>(waited);
+      }
     }
+    loop = probe_clock<kProbe>() - loop;
   }
-  loop = probe_clock<kProbe>() - loop;
 
   // epilogue: the running sums into shared memory as [P][N][N] (rows of
-  // kLdPix with kFuse), then per pixel A1ᴴ · P · A2 (math.hpp:64-77) and the
-  // taper. The fused form first starts the copy of K3's factors.
-  constexpr int kLdPix = kFuse ? TL::kLdPix : N;
-  float2* s_pix = reinterpret_cast<float2*>(smem);
+  // kLdPix with kFuse; turned, the consumers stored them), then per pixel
+  // A1ᴴ · P · A2 (math.hpp:64-77) and the taper, on kEpi threads: turned,
+  // the consumers alone, which meet at a named barrier. The fused form
+  // first starts the copy of K3's factors.
+  constexpr int kEpi = TL::kTurned ? kCons : kThreads;
+  auto epi_sync = [] {
+    if constexpr (TL::kTurned) {
+      bar_sync(2, kCons);
+    } else {
+      __syncthreads();
+    }
+  };
   if constexpr (kFuse) {
-    dft_load_factors<N, kThreads>(wr, smem + TL::kBytesPix + 2 * Dft<N>::kBytesX, tid);
+    dft_load_factors<N, kEpi>(wr, smem + TL::kBytesPix + 2 * Dft<N>::kBytesX, tid);
   }
-  if (!producer) {
+  if constexpr (!TL::kTurned) {
+    if (!producer) {
 #pragma unroll
-    for (int jj = 0; jj < N / 8; ++jj) {
+      for (int jj = 0; jj < N / 8; ++jj) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int y = 8 * jj + 2 * t4 + e;
-        s_pix[(p_out * N + y) * kLdPix + x_out] = sum[2 * jj + e];
+        for (int e = 0; e < 2; ++e) {
+          const int y = 8 * jj + 2 * t4 + e;
+          s_pix[(p_out * N + y) * kLdPix + x_out] = sum[2 * jj + e];
+        }
       }
     }
   }
-  __syncthreads();
+  epi_sync();
   const size_t nn = (size_t)N * N;
   const size_t at1 = ((size_t)aterm_index[s] * nr_stations + station1[s]) * nn;
   const size_t at2 = ((size_t)aterm_index[s] * nr_stations + station2[s]) * nn;
   if constexpr (!kFuse) {
-    for (int q = tid; q < N * N; q += kThreads) {
+    for (int q = tid; q < N * N; q += kEpi) {
       float2 px[kPols], o[kPols];
 #pragma unroll
       for (int p = 0; p < kPols; ++p) px[p] = s_pix[p * nn + q];
@@ -404,7 +578,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     float* x_hi = reinterpret_cast<float*>(smem + TL::kBytesPix);
     float* x_lo = x_hi + D::kBytesX / 4;
     const float* w_hi = x_lo + D::kBytesX / 4;
-    for (int e = tid; e < N * N; e += kThreads) {
+    for (int e = tid; e < N * N; e += kEpi) {
       const int x = ((e >> 5) % (N / 4)) * 4 + (e & 3);
       const int y = ((e >> 5) / (N / 4)) * 8 + ((e >> 2) & 7);
       const int q = y * N + x;
@@ -420,13 +594,18 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     }
     cp_async_wait_all();
     fence_async_smem();
-    __syncthreads();
+    epi_sync();
     k3_cycles = probe_clock<kProbe>();
     const bool k3 = __shfl_sync(0xffffffffu, tid < 128 * D::kGroups ? 1 : 0, 0) != 0;
     if (k3) {
       // the roll is taken mod N, as the plain version takes it: no index leaves the tile
       const int oy = (oyx[2 * s] % N + N) % N, ox = (oyx[2 * s + 1] % N + N) % N;
       float2* out_s = out + (size_t)s * kPols * nn;
+      if constexpr (TL::kTurned) {
+        // K3's accumulators: the first of acc, dead since the loop
+#pragma unroll
+        for (int i = 0; i < Dft<N>::kAcc; ++i) acc[i] = 0.0f;
+      }
       dft2_products<N>(reinterpret_cast<unsigned char*>(x_hi),
                        reinterpret_cast<const unsigned char*>(w_hi), tid / 128, tid % 128,
                        acc, [&](int p, int y, int x, float2 v) {

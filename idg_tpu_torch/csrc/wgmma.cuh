@@ -1,10 +1,11 @@
 // Hopper helpers of the tensor-core kernels: the TF32 gridder and degridder
 // (gridder.cu, degridder.cu), the direct rungs (gridder_direct.cu,
 // degridder_direct.cu) and the bf16 separable rungs (gridder_sep_bf16.cu,
-// degridder_sep_bf16.cu): the TF32 split of a float32 value, TF32
-// `mma.sync`, shared-memory matrix descriptors, `wgmma` on TF32 and on bf16
-// operands with its fences and its three-pass split product, and `cp.async`
-// copies into shared memory.
+// degridder_sep_bf16.cu): the TF32 split of a float32 value (by cvt.rna,
+// or on the bits), TF32 `mma.sync`, shared-memory matrix descriptors,
+// `wgmma` on TF32 (m64n32k8, m64n64k8, m64n128k8) and on bf16 operands with
+// its fences and its three-pass split product, and `cp.async` copies into
+// shared memory.
 //
 // Operand layout (both operands K-major, the only layout TF32 `wgmma`
 // takes, and the one the bf16 kernels use too; no swizzle): a [rows][K]
@@ -36,6 +37,17 @@ __device__ __forceinline__ float tf32_rn(float x) {
 __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
   hi = tf32_rn(x);
   lo = tf32_rn(x - hi);
+}
+
+// split_tf32 of a finite x in five instructions (split_tf32's two cvt.rna
+// take four each, with their check for Inf and NaN): the same rounding (to
+// nearest, ties away from zero) done on the bits, adding half of the 13
+// dropped bits' unit and clearing them (ops/precision.py:round_tf32), so hi
+// and lo are split_tf32's, bit for bit.
+__device__ __forceinline__ void split_tf32_bits(float x, float& hi, float& lo) {
+  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+  const float r = x - hi;
+  lo = __uint_as_float((__float_as_uint(r) + 0x1000u) & 0xffffe000u);
 }
 
 // d += a · b on one 16×8×8 TF32 tile (mma.sync, the direct rungs K8a and
@@ -168,6 +180,32 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t 
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same on D 64×128 (64 registers a thread), the width K1 takes at
+// N = 32 (gridder.cu): B's 128 columns read once a step against 64 rows of A.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -110,19 +110,28 @@ def test_k2_matches_plain_at_every_rank(card, n, rank):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fused", "non-fused"])
 @pytest.mark.parametrize("n", [16, 32])
 @pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 6])
-def test_k1_fused_matches_plain_at_every_rank(card, n, rank):
-    """K1's fused form (the inverse DFT K3 on the TF32 tensor cores, then
-    the roll) against its plain version at every Taylor rank on w ≠ 0
-    data: at N = 32 and rank 4 the epilogue fills the block's one stage."""
+def test_k1_fused_matches_plain_at_every_rank(card, n, rank, form):
+    """K1 against its plain version at every Taylor rank on w ≠ 0 data, in
+    both forms: the fused one (the inverse DFT K3 on the TF32 tensor cores,
+    then the roll) and the non-fused one. N = 32 takes the turned product
+    (the lhs the 64-row operand) at every rank, N = 16 the transposed one;
+    at N = 32 above rank 3 the block has one stage, and at rank 4 the fused
+    epilogue fills it."""
     params, obs, _, _ = _inputs(n, 7, 1000.0)
     md = obs.metadata
     oyx = torch.from_numpy(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size, n))
     stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
-    got = kernels.gridder_cuda_v6_pieces(params, stg_gpu, oyx.to(card), rank)
+    if form == "fused":
+        got = kernels.gridder_cuda_v6_pieces(params, stg_gpu, oyx.to(card), rank)
+        want = kernels.gridder_v6_pieces_plain(params, stg_cpu, oyx, rank)
+    else:
+        got = kernels.gridder_cuda_v6(params, stg_gpu, rank)
+        want = kernels.gridder_plain(params, stg_cpu, rank)
     torch.cuda.synchronize()
-    _gate(got, kernels.gridder_v6_pieces_plain(params, stg_cpu, oyx, rank))
+    _gate(got, want)
 
 
 @pytest.mark.cuda
