@@ -16,7 +16,10 @@ is a world of one, so that every command runs with or without `torchrun`:
     local, s_pad = pdist.distribute_observation(params, obs, mesh)
 
 Every rank passes the same global observation (synthetic data is cheap to
-make everywhere); `distribute_observation` keeps only the rank's rows.
+make everywhere) and `distribute_observation` keeps only the rank's rows;
+or, where no process can hold the whole observation, each rank passes its
+own rows with the global subgrid count (`nr_subgrids`). A world started
+from one process, with no launcher, is parallel/world.py's local world.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..config import IDGParams
 from ..types import Observation
-from .mesh import default_device_type
+from .mesh import default_device_type, pad_to_multiple
 
 
 def init_distributed(backend: str | None = None, init_method: str | None = None,
@@ -114,10 +117,11 @@ def _real(x: torch.Tensor) -> torch.Tensor:
 def hierarchical_psum(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     """Sum `x` over the mesh in place, inner dimension first: each host's
     chips reduce over NVLink, then one pre-reduced copy a host crosses the
-    network (psum over "chip", then over "host"). For a 1-D mesh this is one
-    all-reduce. Returns `x`."""
-    for name in reversed(data_axes(mesh)):
-        dist.all_reduce(_real(x), group=mesh.get_group(name))
+    network (psum over "chip", then over "host"). For a 1-D mesh, or a
+    1 × n one, this is one all-reduce. Returns `x`."""
+    for dim in reversed(range(mesh.ndim)):
+        if mesh.size(dim) > 1:      # a dimension of one rank has nothing to sum
+            dist.all_reduce(_real(x), group=mesh.get_group(data_axes(mesh)[dim]))
     return x
 
 
@@ -144,22 +148,55 @@ def _local_slice(arr, lo: int, hi: int, s: int) -> np.ndarray:
     return np.ascontiguousarray(local)
 
 
-def distribute_observation(params: IDGParams, obs: Observation, mesh: DeviceMesh):
-    """This rank's rows of a GLOBAL host observation: (local Observation,
-    padded S). The subgrid axis is padded to a multiple of the mesh size;
-    the small metadata is padded globally (the padded tail needs its
-    canonical time offsets) and then sliced, the per-subgrid arrays are
-    sliced and only the tail shard is zero-padded. Time offsets stay
-    global: the sharded builders rebase them to the rank's rows
-    (`sharded._localize_time_offset`). Host numpy in, host numpy out."""
-    from .sharded import _obs_specs, _pad_observation
+def _pad_rows(x, rows: int):
+    """A rank's own rows `x` zero-padded to `rows` rows: a tensor stays on
+    its device (uncopied when nothing pads), anything else becomes a
+    C-contiguous host array."""
+    if isinstance(x, torch.Tensor):
+        if x.shape[0] == rows:
+            return x
+        return torch.cat([x, x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))])
+    x = np.asarray(x)
+    return _local_slice(x, 0, rows, x.shape[0])
 
-    s = obs.metadata.nr_subgrids
-    md, s_pad = _pad_observation(params, obs.metadata, mesh.size())
+
+def distribute_observation(params: IDGParams, obs: Observation, mesh: DeviceMesh,
+                           nr_subgrids: int | None = None):
+    """This rank's rows of an observation: (local Observation, padded S).
+    The subgrid axis is padded to a multiple of the mesh size; only the
+    tail shard holds padded rows: zeros, with canonical time offsets (s·T).
+    Time offsets stay global: the sharded builders rebase them to the
+    rank's rows (`sharded._localize_time_offset`).
+
+    `obs` is the GLOBAL host observation, or, given the global subgrid count
+    `nr_subgrids`, this rank's own rows alone: its metadata rows (time
+    offsets global), uvw and visibilities of rows [lo, min(hi, S)) of
+    `sharded.local_rows`, host arrays or tensors on the rank's device
+    (kept there). For the same rows both give the same local observation."""
+    from .sharded import _obs_specs
+
+    s = obs.metadata.nr_subgrids if nr_subgrids is None else nr_subgrids
+    s_pad = pad_to_multiple(s, mesh.size())
     lo, hi = _local_rows(mesh, s_pad)
-    local_md = type(md)(**{f.name: np.asarray(getattr(md, f.name))[lo:hi]
-                           for f in dataclasses.fields(md)})
-    fields = {name: _local_slice(getattr(obs, name), lo, hi, s) for name in _obs_specs()}
+    held = max(0, min(hi, s) - lo)
+    md = obs.metadata
+    if nr_subgrids is None:     # the global observation: this rank's rows of it
+        md = type(md)(**{f.name: np.asarray(getattr(md, f.name))[lo:lo + held]
+                         for f in dataclasses.fields(md)})
+        obs = dataclasses.replace(obs, metadata=md, **{
+            name: np.asarray(getattr(obs, name))[lo:lo + held] for name in _obs_specs()})
+    elif md.nr_subgrids != held:
+        raise ValueError(f"this rank holds rows [{lo}, {lo + held}) of {s}, "
+                         f"not {md.nr_subgrids} rows")
+    fields = {name: _pad_rows(getattr(obs, name), hi - lo) for name in _obs_specs()}
+
+    def padded(name):
+        rows = np.asarray(getattr(md, name))
+        tail = (np.arange(lo + held, hi) * params.nr_timesteps_subgrid if name == "time_offset"
+                else np.zeros(hi - lo - held))
+        return np.concatenate([rows, tail.astype(rows.dtype)])
+
+    local_md = type(md)(**{f.name: padded(f.name) for f in dataclasses.fields(md)})
     return dataclasses.replace(obs, metadata=local_md, **fields), s_pad
 
 

@@ -18,7 +18,11 @@ device inside the call (JAX's builders stage inside their jit), after
 rebasing the time offsets to the rank's rows (`_localize_time_offset`).
 `shard_staged_inputs` stages once, outside any timed window, and the
 `*_staged` builders launch the kernel alone: `ops/api.py:staged_runner` on
-the rank's rows.
+the rank's rows. `sharded_gridder_to_grid_staged` stages the 'ranges'
+gridding pass once (StagedGridPass: K1, K4, the all-reduce). Where no
+process can hold the global observation, each rank starts from its own
+rows and the global subgrid count (`nr_subgrids` of
+`distributed.distribute_observation` and `shard_observation_block_sorted`).
 
 Guard contract: the builders apply no API guard (resolution needs the
 global observation, which they never see). Callers that take user-chosen
@@ -43,9 +47,11 @@ from ..ops.grid import (grid_to_subgrids_ranges, plan_grid_add_ranges, roll_offs
                         sort_observation_blocks, subgrids_to_grid, subgrids_to_grid_ranges)
 from ..ops.registry import get_kernel
 from ..types import Observation
+from ..utils import trace
+from ..utils.trace import span
 from .distributed import (_local_rows, _real, data_axes, distribute_observation,
                           distribute_subgrids, flat_axis_index, hierarchical_psum)
-from .mesh import pad_axis0, pad_to_multiple
+from .mesh import pad_to_multiple
 
 
 def _obs_specs() -> tuple[str, ...]:
@@ -70,25 +76,6 @@ def _localize_time_offset(obs: Observation, params: IDGParams,
     return dataclasses.replace(obs, metadata=md)
 
 
-def _pad_observation(params: IDGParams, metadata, n_dev: int):
-    """(metadata padded to a multiple of n_dev rows, padded S). The padded
-    rows take canonical time offsets (s·T) and zeros elsewhere. Only the
-    metadata, which is small, is padded globally: the per-subgrid arrays
-    are sliced per rank and only the tail shard is padded
-    (`distributed.distribute_observation`)."""
-    s = metadata.nr_subgrids
-    s_pad = pad_to_multiple(s, n_dev)
-    if s_pad == s:
-        return metadata, s_pad
-    offsets = np.asarray(metadata.time_offset)
-    extra = np.arange(s, s_pad, dtype=offsets.dtype) * params.nr_timesteps_subgrid
-    return type(metadata)(**{
-        f.name: (np.concatenate([offsets, extra]) if f.name == "time_offset"
-                 else pad_axis0(getattr(metadata, f.name), s_pad))
-        for f in dataclasses.fields(metadata)
-    }), s_pad
-
-
 def _on_device(obs: Observation, device) -> Observation:
     """The observation's arrays on `device`, its metadata left on the host."""
     return dataclasses.replace(obs, **{
@@ -105,16 +92,20 @@ def shard_observation(params: IDGParams, obs: Observation, mesh: DeviceMesh,
     return _on_device(local, device), s_pad
 
 
+@span("idg.mesh.shard")
 def shard_observation_block_sorted(params: IDGParams, obs: Observation,
-                                   mesh: DeviceMesh, device="cuda"):
+                                   mesh: DeviceMesh, device="cuda",
+                                   nr_subgrids: int | None = None):
     """shard_observation with this rank's rows block-sorted by destination
     grid block, and their range plan for the 'ranges' grid stage:
     (local, padded S, ops/grid.py GridAddRangePlan). Each rank sorts its
     own segment (the metadata alone, as the `pipeline` command sorts; the
     time offsets follow their subgrids, so staging takes its gather path)
     and plans it on the host. The JAX package's mesh-global window `w`,
-    which let one traced program serve every shard, has no counterpart."""
-    local, s_pad = distribute_observation(params, obs, mesh)
+    which let one traced program serve every shard, has no counterpart.
+    With `nr_subgrids`, `obs` holds this rank's own rows alone
+    (distributed.distribute_observation)."""
+    local, s_pad = distribute_observation(params, obs, mesh, nr_subgrids)
     g, n = params.grid_size, params.subgrid_size
     local, _ = sort_observation_blocks(local, g, n)
     plan = plan_grid_add_ranges(local.metadata.coord_x, local.metadata.coord_y, g, n)
@@ -212,8 +203,9 @@ def sharded_gridder_to_grid(params: IDGParams, mesh: DeviceMesh, version: str = 
     epilogue into the range grid-add K4 where the version has the fused
     form (ops/api.py:gridded_pipeline_parts), else the kernel and then
     ops/grid.py:subgrids_to_grid_ranges. At a world of one it is the
-    `pipeline --direction grid` pass, launch for launch, and one all-reduce."""
-    g, n = params.grid_size, params.subgrid_size
+    `pipeline --direction grid` pass, launch for launch, and one all-reduce
+    (none at a world of one)."""
+    g = params.grid_size
     n_inner, inner_group = _inner_group(mesh)
     if grid_sharded and g % n_inner:
         raise ValueError(f"reduce_scatter needs the innermost mesh dimension ({n_inner}) "
@@ -224,21 +216,14 @@ def sharded_gridder_to_grid(params: IDGParams, mesh: DeviceMesh, version: str = 
         raise ValueError("grid_method='ranges' requires apply_fft=True")
     kernel = _kernel_fn("gridder", version, w_rank)
     fused = grid_method == "ranges" and version in PIECES_GRIDDERS
-    if fused:
-        from ..ops.cuda.gridder import gridder_cuda_v6_pieces
-
-        rank = _rank_args("gridder", version, w_rank)
 
     def local_grid(obs, plan):
+        if fused:
+            staged = sharded_gridder_to_grid_staged(params, obs, plan, mesh, version, w_rank)
+            return staged.grid_add(staged.gridder())
         stg = _stage_local(params, obs, mesh)
         if grid_method == "scatter":
             return subgrids_to_grid(kernel(params, stg), stg.coord_x, stg.coord_y, g, apply_fft)
-        md = obs.metadata
-        if fused:
-            oyx = torch.as_tensor(roll_offsets(md.coord_x, md.coord_y, g, n), device=stg.device)
-            pieces = gridder_cuda_v6_pieces(params, stg, oyx, *rank)
-            return subgrids_to_grid_ranges(None, stg.coord_x, stg.coord_y, g, plan=plan,
-                                           tiles=pieces)
         return subgrids_to_grid_ranges(kernel(params, stg), stg.coord_x, stg.coord_y, g,
                                        plan=plan)
 
@@ -259,6 +244,68 @@ def sharded_gridder_to_grid(params: IDGParams, mesh: DeviceMesh, version: str = 
         return out
 
     return fn
+
+
+# the counter of a rank's local part of a staged sharded pass (K1 and K4)
+LOCAL_PASS = "idg.mesh.local_pass"
+
+
+class StagedGridPass:
+    """One rank's part of the sharded gridding pass, its rows staged once:
+    `gridder()` the fused K1 (gridder_cuda_v6_pieces) on the rank's
+    block-sorted rows, `grid_add(pieces)` K4 on its range plan,
+    `reduce(grid)` the all-reduce of the replicated c64[P, G, G] grid
+    (hierarchical_psum, span idg.mesh.reduce); a call runs the three. At a
+    world of one it is the `pipeline --direction grid` pass, launch for
+    launch (ops/api.py:gridded_pipeline_parts), and no collective. With
+    `record` (a rank traces only when rank 0 asks it to), the K1 and K4 of
+    the pass are timed into the counter LOCAL_PASS (utils/trace.py)."""
+
+    def __init__(self, params: IDGParams, mesh: DeviceMesh, stg: Staged, oyx: torch.Tensor,
+                 plan, rank: tuple, version: str):
+        self.params, self.mesh, self.stg, self.oyx = params, mesh, stg, oyx
+        self.plan, self.rank, self.version = plan, rank, version
+        self._start = None
+
+    def gridder(self, record: bool = False) -> torch.Tensor:
+        from ..ops.cuda.gridder import gridder_cuda_v6_pieces
+
+        self._start = trace.mark(self.stg.device) if record else None
+        return gridder_cuda_v6_pieces(self.params, self.stg, self.oyx, *self.rank)
+
+    def grid_add(self, pieces: torch.Tensor) -> torch.Tensor:
+        grid = subgrids_to_grid_ranges(None, self.stg.coord_x, self.stg.coord_y,
+                                       self.params.grid_size, plan=self.plan, tiles=pieces)
+        if self._start is not None:
+            trace.add_interval(LOCAL_PASS, self._start, trace.mark(self.stg.device))
+            self._start = None
+        return grid
+
+    def reduce(self, grid: torch.Tensor) -> torch.Tensor:
+        with span("idg.mesh.reduce"):
+            return hierarchical_psum(grid, self.mesh)
+
+    def __call__(self, record: bool = False) -> torch.Tensor:
+        return self.reduce(self.grid_add(self.gridder(record)))
+
+
+@span("idg.mesh.stage")
+def sharded_gridder_to_grid_staged(params: IDGParams, obs: Observation, plan,
+                                   mesh: DeviceMesh, version: str = "cuda_v6",
+                                   w_rank: int | None = None) -> StagedGridPass:
+    """sharded_gridder_to_grid(grid_method='ranges') with the staging done
+    here, once: the rank's rows and plan from shard_observation_block_sorted
+    staged on their device (time offsets rebased) with their rolls, for a
+    StagedGridPass. `version` must have the fused form (PIECES_GRIDDERS)."""
+    if version not in PIECES_GRIDDERS:
+        raise ValueError(f"the staged sharded pass takes a gridder with the fused "
+                         f"epilogue {PIECES_GRIDDERS}, not {version!r}")
+    stg = _stage_local(params, obs, mesh)
+    md = obs.metadata
+    oyx = torch.as_tensor(roll_offsets(md.coord_x, md.coord_y, params.grid_size,
+                                       params.subgrid_size), device=stg.device)
+    return StagedGridPass(params, mesh, stg, oyx, plan,
+                          _rank_args("gridder", version, w_rank), version)
 
 
 def _degrid_local(params: IDGParams, mesh: DeviceMesh, kernel, apply_fft: bool):

@@ -19,9 +19,19 @@ the fused K1 and K2, and the profiler window.
                     each block's clock64() phase cycles into it
                     (csrc/gridder.cu, csrc/degridder.cu); launched without
                     it, the kernel is the unprobed one.
+    mark(device), add_interval(name, start, end)
+                    a counter of device intervals: `mark` records a CUDA
+                    event on the current stream (a host clock reading on
+                    the CPU), `add_interval` keeps a pair of marks under a
+                    name, its newest SAMPLES pairs; their milliseconds are
+                    read when a snapshot is taken. The caller marks only
+                    while it traces.
     snapshot()      the spans' aggregates and each kernel's probe sums,
-                    copied to the host once.
-    reset()         clears both.
+                    copied to the host once, and, where intervals were
+                    kept, each counter's count and median ms; on rank 0 of
+                    a local world (parallel/world.py) also every rank's
+                    median, gathered from the ranks when it is taken.
+    reset()         clears all three.
     trace_window(profile_dir, label)
                     runs a body inside `torch.profiler` and exports its
                     Chrome trace (utils/timing.py:time_kernel's hook,
@@ -30,7 +40,10 @@ the fused K1 and K2, and the profiler window.
 Names: `idg.plan.*` (ops/grid.py's plans), `idg.stage.*` (ops/api.py's
 guards, ops/common.py's staging), the pass spans `idg.gridder`,
 `idg.grid_add` (with `idg.kernel.grid_add` inside), `idg.grid_extract` and
-`idg.degridder`. No span runs inside a loop over subgrids or tiles.
+`idg.degridder`; the local world's `idg.mesh.launch`, `idg.mesh.shard`,
+`idg.mesh.stage` and `idg.mesh.reduce` (parallel/). The counter
+`idg.mesh.local_pass` times a rank's K1 and K4 of a sharded pass. No span
+runs inside a loop over subgrids or tiles.
 """
 
 from __future__ import annotations
@@ -69,6 +82,8 @@ class Tracer:
     def __init__(self):
         self._local = threading.local()
         self._lock = threading.Lock()
+        # rank 0 of a local world: fn() -> every rank's interval_medians()
+        self.gather = None
         self.reset()
 
     def reset(self) -> None:
@@ -78,6 +93,7 @@ class Tracer:
             self.probes = {}     # (kernel, device) -> i64[len(PROBE_FIELDS)] on the device
             self.probe_calls = collections.Counter()   # (kernel, device) -> calls while profiling
             self.probed = collections.Counter()        # (kernel, device) -> probed launches
+            self.intervals = {}  # name -> newest (start, end) marks
 
     def _stack(self) -> list:
         """This thread's open spans, each (start ns, profiler range or None)."""
@@ -116,11 +132,36 @@ class Tracer:
                                                      device=key[1])
         return buf
 
+    def add_interval(self, name: str, start, end) -> None:
+        with self._lock:
+            rows = self.intervals.get(name)
+            if rows is None:
+                rows = self.intervals[name] = collections.deque(maxlen=SAMPLES)
+            rows.append((start, end))
+
+    def interval_medians(self) -> dict:
+        """{name: (count, median ms)} of the kept intervals of this
+        process, waiting for each one's closing event."""
+        with self._lock:
+            kept = {name: list(rows) for name, rows in self.intervals.items()}
+        return {name: (len(rows), statistics.median(_elapsed_ms(a, b) for a, b in rows))
+                for name, rows in kept.items() if rows}
+
     def snapshot(self) -> dict:
         """{"spans": per span name {count, total_s, top_s (with no enclosing
         span), median_s (of its newest SAMPLES)}; "probes": per kernel the
         sums of PROBE_FIELDS over its devices, and `launches`, its probed
-        launches}."""
+        launches}; with kept intervals also "counters": per name {count,
+        median_ms, ranks: each rank's median ms, rank 0 first (this
+        process's alone outside a local world)}."""
+        medians = self.interval_medians()
+        counters = {}
+        if medians:
+            ranks = self.gather() if self.gather is not None else None
+            for name, (count, median) in medians.items():
+                per_rank = ([r.get(name, (0, None))[1] for r in ranks] if ranks
+                            else [median])
+                counters[name] = dict(count=count, median_ms=median, ranks=per_rank)
         with self._lock:
             spans = {name: dict(count=c, total_s=t * 1e-9, top_s=top * 1e-9,
                                 median_s=statistics.median(d) * 1e-9)
@@ -132,7 +173,18 @@ class Tracer:
             for field, value in zip(PROBE_FIELDS, buf.cpu().tolist()):
                 got[field] += int(value)
             got["launches"] += launches
-        return dict(spans=spans, probes=sums)
+        out = dict(spans=spans, probes=sums)
+        if counters:
+            out["counters"] = counters
+        return out
+
+
+def _elapsed_ms(start, end) -> float:
+    """Milliseconds between two marks: CUDA events or perf_counter_ns."""
+    if isinstance(start, int):
+        return (end - start) * 1e-6
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 class span:
@@ -183,6 +235,21 @@ def probe(kernel: str, device) -> Optional[torch.Tensor]:
 
 def snapshot() -> dict:
     return TRACER.snapshot()
+
+
+def mark(device):
+    """A CUDA event recorded on `device`'s current stream, or on the CPU
+    the host clock in ns: one end of an interval for add_interval."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return time.perf_counter_ns()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def add_interval(name: str, start, end) -> None:
+    TRACER.add_interval(name, start, end)
 
 
 def reset() -> None:
