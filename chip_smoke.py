@@ -1604,49 +1604,62 @@ def redesign_phase(rows, timing):
 
 def instance_report(tag: str, label: str, kernel: str, opcode: str = "HGMMA",
                     forms=("non-fused", "fused"), no_spill: bool = False,
-                    flag_adds: bool = False) -> None:
+                    flag_adds: bool = False, turned: int = 0) -> None:
     """Print ptxas's registers and spills and the cuobjdump count of `opcode`
     of each (N, flag) instance of `kernel` (a mangled name's stem, e.g.
     "16degridder_kernel"; the flag kFuse or kRecur, named by `forms`); raise
     unless all four are there and run on the tensor cores, with `no_spill`
     if one spills, and with `flag_adds` unless each flagged instance has
     more `opcode` instructions than its unflagged one (K3 on the tensor
-    cores in the fused forms). The probed instances of K1 and K2 (a third
+    cores in the fused forms). K2's instances with a fourth flag, kTurned,
+    set (the turned product at N = 32 up to rank 2) are `turned` more, held
+    to the same and to no spill. The probed instances of K1 and K2 (a third
     flag, kProbe, set) are printed beside, and counted in none of these."""
     from idg_tpu_torch.ops.cuda import build
 
-    stem = re.compile(rf"{kernel}ILi(\d+)ELb(\d)E(?:Lb0E)?E")
-    probed = re.compile(rf"{kernel}ILi(\d+)ELb1ELb1EE")
+    stem = re.compile(rf"{kernel}ILi(\d+)ELb(\d)E(?:Lb0E(?:Lb(\d)E)?)?E")
+    probed = re.compile(rf"{kernel}ILi(\d+)ELb1ELb1E(?:Lb(\d)E)?E")
+
+    def key(found):
+        return found.group(1), found.group(2), found.group(3) or "0"
+
+    def name(key):
+        return f"{label} N = {key[0]} {forms[int(key[1])]}{' turned' if key[2] == '1' else ''}"
+
     lines = build.build_log.splitlines()
     ptxas = {}
     for i, line in enumerate(lines):
         found = stem.search(line)
         if "Compiling entry" in line and found:
-            ptxas[found.groups()] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+            ptxas[key(found)] = " | ".join(x.strip() for x in lines[i + 2:i + 4])
         found = probed.search(line)
         if "Compiling entry" in line and found:
-            phase(tag, f"{label} N = {found.group(1)} {forms[1]} probed: ptxas "
+            phase(tag, f"{name((found.group(1), '1', found.group(2) or '0'))} probed: ptxas "
                        + " | ".join(x.strip() for x in lines[i + 2:i + 4]))
-    counts = {stem.search(name).groups(): count
-              for name, count in sass_counts(str(build.build()), stem.pattern, opcode).items()}
-    for key in sorted(set(ptxas) | set(counts)):
-        phase(tag, f"{label} N = {key[0]} {forms[int(key[1])]}: {counts.get(key, 0)} {opcode}; "
-                   f"ptxas {ptxas.get(key, 'missing')}")
-    if len(counts) != 4 or len(ptxas) != 4 or not all(counts.values()):
+    counts = {key(stem.search(fn)): count
+              for fn, count in sass_counts(str(build.build()), stem.pattern, opcode).items()}
+    for k in sorted(set(ptxas) | set(counts)):
+        phase(tag, f"{name(k)}: {counts.get(k, 0)} {opcode}; ptxas {ptxas.get(k, 'missing')}")
+    want = 4 + turned
+    if len(counts) != want or len(ptxas) != want or not all(counts.values()):
         raise RuntimeError(f"{label}'s instances do not all run on the tensor cores: {counts}")
-    spills = [key for key, line in ptxas.items() if " 0 bytes spill stores" not in line]
-    if no_spill and spills:
+    spills = [k for k, line in ptxas.items() if " 0 bytes spill stores" not in line]
+    if (no_spill or turned) and [k for k in spills if no_spill or k[2] == "1"]:
         raise RuntimeError(f"{label}'s instances {spills} spill")
-    if flag_adds and not all(counts[(n, "1")] > counts[(n, "0")] for n, _ in counts):
+    if flag_adds and not all(counts[(n, "1", t)] > counts[(n, "0", t)] for n, _, t in counts):
         raise RuntimeError(f"{label}'s fused instances do not add {opcode}: {counts}")
 
 
 def k2_phase(rows, timing):
     """Phase 13: the redesigned K2 (degridder cuda_v7, TF32 wgmma): ptxas
-    lines and HGMMA counts of every instance; both forms against the f64
+    lines and HGMMA counts of every instance, the turned ones (N = 32 up to
+    rank 2) too; both forms (non-fused, fused) of both products (turned at
+    N = 32 up to rank 2, the pol-stacked one elsewhere) against the f64
     oracle at w = 0, rank 4, C = 48, on non-uniform wavenumbers (no
-    fallback) and on a ragged V, with counted launches; both against their
-    plain versions on the first 512 default subgrids, then timed."""
+    fallback) and on a ragged V, at N = 32 and N = 16 (N = 16 at the check
+    mode's gate, GATE, as phase 12 holds K1), with counted launches; both
+    forms against their plain versions on the first 512 default subgrids at
+    ranks 1, 2 (turned) and 4, then timed at rank 2."""
     import dataclasses
 
     import torch
@@ -1661,26 +1674,32 @@ def k2_phase(rows, timing):
     from idg_tpu_torch.ops.common import slice_staged, stage
     from idg_tpu_torch.utils.compare import check_error
 
+    def product(n, rank):
+        return "turned" if n == 32 and rank <= 2 else "pol-stacked"
+
     t_start = time.perf_counter()
-    instance_report("K2", "K2", r"\d+degridder_kernel", flag_adds=True)
+    instance_report("K2", "K2", r"\d+degridder_kernel", flag_adds=True, turned=2)
 
     # both forms against the f64 oracle on the correctness problem; the
     # fused form takes the subgrids' pieces (inverse DFT and roll), which
     # its prologue turns back
-    params = IDGParams.correctness_defaults()
-    obs0, _ = make_observation(params)
-    params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
-    params_c = dataclasses.replace(params, nr_channels=RESYNC_CHANNELS)
-    obs_c, _ = make_observation(params_c)
-    k = np.array(obs0.wavenumbers, copy=True)
-    k[-1] *= 1.05
-    obs_nu = dataclasses.replace(obs0, wavenumbers=k)
-    params_r = dataclasses.replace(params, nr_timesteps_subgrid=37, nr_channels=7)
-    obs_r, _ = make_observation(params_r)
-    for label, p, obs in (("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w),
-                          (f"C = {RESYNC_CHANNELS}", params_c, obs_c),
-                          ("non-uniform channels", params, obs_nu),
-                          ("ragged V = 37·7", params_r, obs_r)):
+    problems = []
+    for n_sub in (32, 16):
+        params = IDGParams.correctness_defaults(subgrid_size=n_sub)
+        obs0, _ = make_observation(params)
+        params_w, obs_w, _ = make_w_observation(params, w_scale=1000.0)
+        params_c = dataclasses.replace(params, nr_channels=RESYNC_CHANNELS)
+        obs_c, _ = make_observation(params_c)
+        k = np.array(obs0.wavenumbers, copy=True)
+        k[-1] *= 1.05
+        obs_nu = dataclasses.replace(obs0, wavenumbers=k)
+        params_r = dataclasses.replace(params, nr_timesteps_subgrid=37, nr_channels=7)
+        obs_r, _ = make_observation(params_r)
+        problems += [(f"N = {n_sub} {label}", p, obs) for label, p, obs in (
+            ("w=0", params, obs0), ("rank 4 (w_scale 1000)", params_w, obs_w),
+            (f"C = {RESYNC_CHANNELS}", params_c, obs_c), ("non-uniform channels", params, obs_nu),
+            ("ragged V = 37·7", params_r, obs_r))]
+    for label, p, obs in problems:
         version, rank = _resolve("degridder", "cuda_v7", p, obs)
         rank = rank or 2
         md = obs.metadata
@@ -1698,17 +1717,27 @@ def k2_phase(rows, timing):
         oracle = degridder_reference(p, obs, sub)
         err = check_error(got, oracle, verbose=False).mean_error
         err_f = check_error(got_f, oracle, verbose=False).mean_error
-        ok = (version == "cuda_v7" and max(err, err_f) <= K2_ORACLE_GATE
+        # N = 16 at the check mode's gate, its float32 plain version's own
+        # error printed beside (phase 12's rule for K1)
+        gate = K2_ORACLE_GATE if p.subgrid_size == 32 else GATE
+        plain = ""
+        if p.subgrid_size != 32:
+            own = check_error(kernels.degridder_plain(p, stage(p, obs, "cpu", with_vis=False),
+                                                      torch.from_numpy(sub), rank),
+                              oracle, verbose=False).mean_error
+            plain = f", plain version (CPU) {own:.3e}"
+        ok = (version == "cuda_v7" and max(err, err_f) <= gate
               and (rank >= 4) == ("rank 4" in label)
               and launched == {"degridder_cuda_v7": 2, "degridder_cuda_v7_fused": 1})
-        phase("K2", f"K2 {label}: resolved ({version}, {rank}), mean_error {err:.3e}, "
-                    f"fused {err_f:.3e} (gate {K2_ORACLE_GATE:g}), launches {launched} "
-                    f"{'PASSED' if ok else 'FAILED'}")
+        phase("K2", f"K2 {label} ({product(p.subgrid_size, rank)}): resolved ({version}, "
+                    f"{rank}), mean_error {err:.3e}, fused {err_f:.3e} (gate {gate:g}{plain}), "
+                    f"launches {launched} {'PASSED' if ok else 'FAILED'}")
         if not ok:
             raise RuntimeError(f"K2 {label} failed")
 
     # both forms against their plain versions on the first 512 default
-    # subgrids, then timed on the full problem
+    # subgrids at ranks 1 and 2 (turned) and 4 (pol-stacked), then timed at
+    # rank 2
     params = IDGParams.from_env()
     obs = make_perf_observation(params)
     md = obs.metadata
@@ -1720,22 +1749,26 @@ def k2_phase(rows, timing):
     pieces = tgrid.pieces_from_subgrids(sub, oyx)
     n = COMPARE_SUBGRIDS
     small = slice_staged(stg, 0, n)
-    for name, kernel, plain, small_args, full_args in (
-            ("degridder_cuda_v7", kernels.degridder_cuda_v7, kernels.degridder_plain,
-             (params, small, sub[:n], 2), (params, stg, sub, 2)),
-            ("degridder_cuda_v7_fused",
-             lambda p, s, sb, r, o: kernels.degridder_cuda_v7(p, s, sb, r, fuse_oyx=o),
-             lambda p, s, sb, r, o: kernels.degridder_plain(p, s, tgrid._finish_extract(sb, o), r),
-             (params, small, pieces[:n], 2, oyx[:n]), (params, stg, pieces, 2, oyx))):
-        got = kernel(*small_args)
-        torch.cuda.synchronize()
-        err = check_error(got, plain(*small_args), verbose=False).mean_error
-        ms = device_ms(kernel, *full_args, harness=timing)
-        phase("K2", f"{name} vs plain on {n} subgrids: mean_error {err:.3e} "
-                    f"(gate {K2_PLAIN_GATE:g}); full problem {ms:.3f} ms "
-                    f"{'PASSED' if err <= K2_PLAIN_GATE else 'FAILED'}")
-        if err > K2_PLAIN_GATE:
-            raise RuntimeError(f"{name} disagrees with its plain version")
+    for rank in (1, 2, 4):
+        for name, kernel, plain, small_args, full_args in (
+                ("degridder_cuda_v7", kernels.degridder_cuda_v7, kernels.degridder_plain,
+                 (params, small, sub[:n], rank), (params, stg, sub, rank)),
+                ("degridder_cuda_v7_fused",
+                 lambda p, s, sb, r, o: kernels.degridder_cuda_v7(p, s, sb, r, fuse_oyx=o),
+                 lambda p, s, sb, r, o: kernels.degridder_plain(p, s, tgrid._finish_extract(sb, o),
+                                                                r),
+                 (params, small, pieces[:n], rank, oyx[:n]), (params, stg, pieces, rank, oyx))):
+            got = kernel(*small_args)
+            torch.cuda.synchronize()
+            err = check_error(got, plain(*small_args), verbose=False).mean_error
+            timed = ""
+            if rank == 2:
+                timed = f"; full problem {device_ms(kernel, *full_args, harness=timing):.3f} ms"
+            phase("K2", f"{name} rank {rank} ({product(params.subgrid_size, rank)}) vs plain on "
+                        f"{n} subgrids: mean_error {err:.3e} (gate {K2_PLAIN_GATE:g}){timed} "
+                        f"{'PASSED' if err <= K2_PLAIN_GATE else 'FAILED'}")
+            if err > K2_PLAIN_GATE:
+                raise RuntimeError(f"{name} disagrees with its plain version at rank {rank}")
     del stg, small, sub, pieces
     torch.cuda.empty_cache()
     phase("K2", f"phase 13: {time.perf_counter() - t_start:.1f} s")

@@ -19,59 +19,91 @@
 // What bounds it on an H100: the product, 4N × 2N × 2V real multiply-adds a
 // subgrid and pass. At the default problem (rank 2, N = 32, V = 2048) it is
 // 4 TF32 passes × 67.1 MFLOP × 24,500 subgrids = 6.6e12 FLOP, 13.3 ms at
-// 495 TFLOP/s, the count of the gridder K1; around it 131,072 exact sincosf
-// a subgrid and stage 2 (~1 M FMA a subgrid, ~0.8 ms if alone). Its bytes
-// (2.4 GB) take 0.72 ms. The reference's operation model (1.779e12 FLOP a
-// pass) over the TF32 peak gives 3.594 ms, fused 3.699.
+// 495 TFLOP/s (2,048 tensor cycles of each 32-visibility tile, 11,879
+// tiles an SM), the count of the gridder K1; around it 131,072 exact
+// sincosf a subgrid and stage 2 (~1 M FMA a subgrid). Its bytes (2.4 GB)
+// take 0.72 ms. The reference's operation model (1.779e12 FLOP a pass) over
+// the TF32 peak gives 3.594 ms, fused 3.699. On the card (PERF.md §6) the
+// pol-stacked form below took 29.9 ms fused; builds of it that dropped a
+// role took 19.9 ms with the producers alone, 24.1 with the consumers alone
+// (17.9 without stage 2) and 3.0 with neither: the consumers' products and
+// stage 2 ran one after the other, and the formation would hide under them.
 //
-// Design (the gridder K1's, csrc/gridder.cu, turned around):
-//  - lhs_r is the 64-row wgmma operand: 128 rows at N = 32 (two consumer
-//    warpgroups, two pols each), 64 at N = 16 (one), so both subgrid sizes
-//    fill whole warpgroups. It is formed and split once a subgrid, in the
-//    prologue, and read by every tile. A tile of 32 visibilities is the
-//    64-column rhs (the real column of each visibility, then its imaginary
-//    one), K = 2N (x re | x im), formed once a tile for every rank.
+// Two product forms, chosen by (N, w_rank), inputs the kernel already has:
+//  - N = 32 up to rank 2, turned (kTurned): Dᵀ[(v, re | im), (p, y)] =
+//    rhsᵀ · lhs_rᵀ. A tile's 32 visibilities, a real and an imaginary row
+//    each over K = 2N (x re | x im), in alternating groups of 8, are the
+//    m64 operand; the lhs's 128 rows (p, y) the n128 operand, so one
+//    warpgroup computes a whole tile in 32 wgmma m64n128k8 (8 k8 steps,
+//    three TF32 passes of rank 0 and one of rank 1), where the pol-stacked
+//    form took 64 m64n64k8 over two warpgroups: 192 KB of operands a tile
+//    instead of 256 KB. Rank 1's weight conj(iμ) = −iμ is folded into its
+//    A rows (the producers store μ·[−Φx_im | Φx_re] and −μ·[Φx_re | Φx_im],
+//    rows swapped and scaled, TF32 hi), so both ranks sum in the same 64
+//    accumulators: a thread holds D_re and D_im of one visibility at 8 y of
+//    each pol, and stage 2 is per thread (8 Φy loads, 32 complex MACs) and
+//    per quad (two xor-shuffle steps leave lane t pol t, which it stores:
+//    a quad writes a visibility's 32 bytes). The two consumer warpgroups
+//    take alternate tiles (ping-pong), so one's stage 2 runs while the
+//    other's products are on the tensor cores; each has its own slot of
+//    the two-slot ring, handed over by named barriers (formed: producers
+//    arrive, the warpgroup waits; free again: the warpgroup arrives once
+//    its products are done and its Φy read, the producers wait), which
+//    also order the tiles. Up to rank 2 the fold fits: above it every rank
+//    would need a weighted A, hi and lo, beside the ranks' lhs.
+//  - Otherwise pol-stacked: D_r = lhs_r · rhs, lhs_r the 64-row operand,
+//    128 rows at N = 32 (two consumer warpgroups, two pols each), 64 at
+//    N = 16 (one), so both subgrid sizes fill whole warpgroups; a tile is
+//    the 64-column rhs (the real column of each visibility, then its
+//    imaginary one), formed once a tile for every rank. Stage 2 on the
+//    accumulators: a thread holds D_re and D_im of two rows (p, y),
+//    (p, y + 8) at 8 visibilities; Σ_y conj(Φy) and Σ_r conj(c_r) commute,
+//    so the ranks are summed first: the first rank's products accumulate in
+//    the rank-sum registers themselves, the second's in a second set,
+//    issued right behind, and each later rank is added as (−i)^r·μ^r/r!
+//    times its D, a quarter turn and two FMAs an entry. Φy multiplies the
+//    rank sum once a tile, then a butterfly over the 8 lanes of a column
+//    group leaves each lane one visibility's sum over its warp's 16 rows.
+//    The warps of one pol (two at N = 32) meet in shared memory once a
+//    tile, where the producers add them and store the tile's [32, P]
+//    outputs, coalesced. One barrier a tile hands the two stages over.
+//
+// Common to both:
+//  - lhs_r = [B_re·n^r | B_im·n^r], rows (p, y), formed and split once a
+//    subgrid, in the prologue, and read by every tile.
 //  - TF32 in three passes (wgmma.cuh: lo·hi + hi·lo + hi·hi, ~22 bits of
 //    each operand, so degridder_plain, float32 "highest", stays the
 //    reference) for rank 0 and for every rank of an escalated rank; hi·hi
-//    alone for rank 1 at rank ≤ 2 (ops/precision.py, "3xtf32").
-//  - Stage 2 on the accumulators: a thread holds D_re and D_im of two rows
-//    (p, y), (p, y + 8) at 8 visibilities. Σ_y conj(Φy) and Σ_r conj(c_r)
-//    commute, so the ranks are summed first: the first rank's products
-//    accumulate in the rank-sum registers themselves, the second's in a
-//    second set, issued right behind (the tensor cores run both back to
-//    back), and each later rank is added as (−i)^r·μ^r/r! times its D, a
-//    quarter turn and two FMAs an entry. Φy multiplies the rank sum once a
-//    tile, then a butterfly over the 8 lanes of a column group leaves each
-//    lane one visibility's sum over its warp's 16 rows. The warps of one pol
-//    (two at N = 32) meet in shared memory once a tile, where the producers
-//    add them and store the tile's [32, P] outputs, coalesced. Only the
-//    wgmma's own sum over 2N truncates (the tensor cores' accumulation); the
-//    rank sum, the y-sum and the pols' halves are round-to-nearest FMAs and
-//    FADDs, and no sum runs across tiles (a visibility lives in one tile).
+//    alone for rank 1 at rank ≤ 2 (ops/precision.py, "3xtf32"). Only the
+//    wgmma's own sums truncate (the tensor cores' accumulation: over 2N,
+//    and turned over both ranks' 4N); the rank sum (pol-stacked), the y-sum
+//    and the pols' halves are round-to-nearest FMAs and FADDs, and no sum
+//    runs across tiles (a visibility lives in one tile).
 //  - Warp specialization: the consumer warpgroups issue the products and
-//    fold them; after them 8N producer threads form the next tile (512
+//    run stage 2; after them 8N producer threads form the tiles (512
 //    threads at N = 32, 256 at N = 16). A producer owns one visibility of
 //    the tile and 4 x and 4 y: eight exact sincosf, Φx's TF32 split written
-//    as 16-byte stores into both of its columns (consecutive lanes on
-//    consecutive rows: no bank conflicts), Φy into a padded [v][y] table
-//    that stage 2 reads without conflicts. The roles come through a warp
-//    shuffle and the ragged tile is masked by selects, not branches: ptxas
-//    serializes wgmma around a divergent path. One barrier a tile hands the
-//    two stages over.
+//    as 16-byte stores (consecutive lanes on consecutive rows: no bank
+//    conflicts; turned, split on the bits, wgmma.cuh:split_tf32_bits), Φy
+//    into a [v][y] table that stage 2 reads without conflicts (pol-stacked
+//    padded rows, turned a swizzle, phy_unit). The roles come through a
+//    warp shuffle and nothing in a warpgroup that issues wgmma branches on
+//    the thread (ragged tiles by selects or predicated stores): ptxas
+//    serializes wgmma around a divergent path.
 //  - Shared memory: the lhs of one rank is 32 KB a split at N = 32 (8 KB at
-//    N = 16), a stage 41 KB (21 KB). Up to rank 2 the lhs (hi of each rank,
-//    lo of rank 0) sits beside both stages (182 KB at N = 32); at N = 16
-//    every rank up to 6 does. At N = 32 above rank 2 (three passes for each
-//    rank, 64 KB a rank) the ranks go in groups of two: each group forms its
-//    lhs and walks all tiles, forming Φ again, and adds its visibilities to
-//    those of the groups before it (a round-to-nearest FADD on the output).
-//  - 124 registers at N = 32, 122 at N = 16, no spill. Against the 13.3 ms
-//    product floor it runs at about half the TF32 rate (PERF.md): rank 1
-//    alone takes nearly as long as rank 2, and builds that dropped the
-//    products, the formation or stage 2 each saved only part of the time,
-//    so the CUDA-core work around the products (the formation, stage 2,
-//    the prologue) on 16 warps a SM, not the tensor cores, sets its pace.
+//    N = 16). Up to rank 2 the lhs (hi of each rank, lo of rank 0) sits
+//    beside both stages (pol-stacked: 41 KB a stage, 182 KB at N = 32;
+//    turned: 56 KB a slot, 208 KB); at N = 16 every rank up to 6 does. At
+//    N = 32 above rank 2 (three passes for each rank, 64 KB a rank) the
+//    ranks go in groups of two: each group forms its lhs and walks all
+//    tiles, forming Φ again, and adds its visibilities to those of the
+//    groups before it (a round-to-nearest FADD on the output).
+//  - Registers, no spill: pol-stacked 124 at N = 32, 122 at N = 16; turned
+//    105 fused, 100 non-fused (the consumers' 64 accumulators, the Φy of
+//    their 8 y and the descriptors, formed each tile).
+//  - On the card (default problem, rank 2, PERF.md §6) the turned form
+//    takes 21.3 ms fused and 20.4 non-fused, where the pol-stacked one took
+//    29.8 and 28.6.
 //
 // Fused prologue (kFuse): the input is the range extraction's block-rolled
 // pieces. The block copies them as they are into the stages' shared memory
@@ -81,8 +113,8 @@
 // TPU kernel's conjugate Fourier phases) into K3's operand (dft.cuh) in the
 // lhs slots, free until the lhs is formed; K3 applies the forward
 // folded-shift DFT to all four pols at once on the TF32 tensor cores, on the
-// consumer warpgroups, and the subgrid lands back in the stages, rows
-// padded, where the taper/Jones prologue reads it in place of device
+// consumer warpgroups, and the subgrid lands back in the stages (turned:
+// the slots), rows padded, where the taper/Jones prologue reads it in place of device
 // memory. The result is the non-fused kernel on
 // ops/grid.py:_finish_extract(pieces). At N = 32 above rank 2 each group of
 // ranks runs the prologue, and K3, again.
@@ -92,8 +124,9 @@
 // block's cycles from entry to exit, in K3 (the fused prologue's copy,
 // un-roll, split and forward DFT, to its barrier), in the tile loops, and
 // waiting at the loops' barriers, on consumer warp 0 (`tc_wait`: the
-// tensor-core warps waiting for the formation) and on the first producer
-// warp (`form_wait`).
+// tensor-core warps waiting for the formation; turned, for its slot to be
+// formed) and on the first producer warp (`form_wait`; turned, for a slot
+// to be free).
 
 #include <cuda_runtime.h>
 
@@ -146,6 +179,39 @@ struct Tile {
   static_assert(kProducers >= kVT * kPols, "one producer a tile output");
 };
 
+// The turned product (N = 32, rank ≤ 2), Dᵀ = rhsᵀ · lhs_rᵀ. A slot holds
+// one tile: its A operand, the 64 rows (v, re | im) in alternating groups
+// of 8 over K = (x re | x im), as rank 0 hi, rank 0 lo and rank 1's folded
+// rows (hi); then Φy as [v][y pair], 16 bytes a pair, the pair's index
+// swizzled (phy_unit). Two slots, one for each consumer warpgroup, handed
+// over by named barriers (1 is K3's).
+struct Turned {
+  using TL = Tile<32>;
+  static constexpr size_t kBytesA = (size_t)kCols * TL::kK * 4;          // 16 KB
+  static constexpr size_t kBytesPhy = (size_t)kVT * 32 * sizeof(float2);  // 8 KB
+  static constexpr size_t kSlot = 3 * kBytesA + kBytesPhy;
+  static constexpr int kFull = 2, kEmpty = 4;   // + slot: formed, free again
+  static constexpr int kBarCount = TL::kProducers + 128;   // producers and one warpgroup
+  static_assert(TL::kGroups == 2, "a slot for each consumer warpgroup");
+  static_assert(TL::kBytesSub + 2 * idg::Dft<32>::kBytesW <= 2 * kSlot,
+                "the fused prologue's subgrid and factors fit the slots");
+  static_assert(kSlot % 128 == 0, "regions stay 128-byte aligned");
+};
+
+// The 16-byte unit of Φy[v][2q, 2q + 1] in a turned slot. The swizzle keeps
+// both sides free of bank conflicts: the producers' stores (8 consecutive v,
+// one q) and stage 2's loads (v and v + 1, four consecutive q).
+__device__ __forceinline__ int phy_unit(int v, int q) {
+  return v * 16 + (q ^ (((v & 1) << 2) | ((v >> 1) & 3)));
+}
+
+// *p = x where live, as a predicated store: no branch in a warpgroup that
+// issues wgmma (ptxas serializes wgmma around a divergent path).
+__device__ __forceinline__ void store_live(float2* p, float2 x, bool live) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p st.global.v2.f32 [%1], {%2, %3};\n}\n"
+               ::"r"((int)live), "l"(p), "f"(x.x), "f"(x.y) : "memory");
+}
+
 // One rank's products over one tile, this warpgroup's slab of the lhs in
 // slot `slot` (its lo in slot group + slot) against the stage's rhs, into
 // acc (three TF32 passes, or hi·hi alone), inside the caller's commit group.
@@ -165,7 +231,7 @@ __device__ __forceinline__ void mma_rank(const unsigned char* lhs, const unsigne
   }
 }
 
-template <int N, bool kFuse, bool kProbe>
+template <int N, bool kFuse, bool kProbe, bool kTurned>
 __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degridder_kernel(
     const float* __restrict__ uvw,          // [S, T, 3]
     const float* __restrict__ mu,           // [S, T, C]
@@ -188,6 +254,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
     int T, int C, int nr_stations, int w_rank, int group) {
   using namespace idg;
   using TL = Tile<N>;
+  static_assert(!kTurned || N == 32, "the turned product fills n128 with the lhs's 128 rows");
   constexpr int kThreads = TL::kThreads;
   constexpr int kCons = TL::kConsumers;
   constexpr int kLd = TL::kLdPhy;
@@ -460,38 +527,200 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) degrid
         reduce_slots(part, lane);
   };
 
-  // The ranks in groups that fit shared memory (one group up to rank 2);
-  // per group: the prologue, then tile j multiplied while tile j + 1 is
-  // formed and tile j − 1 stored, one barrier a tile.
-  const int ngroups = (w_rank + group - 1) / group;
-  for (int gi = 0; gi < ngroups; ++gi) {
-    const int r0 = gi * group, nr = min(group, w_rank - r0);
-    prologue(r0, nr);
+  if constexpr (kTurned) {
+    // the turned product (header): the prologue of every rank, then the
+    // producers form tile j in slot j & 1 while consumer warpgroup j & 1
+    // multiplies it and the other warpgroup runs stage 2 of tile j − 1
+    using TT = Turned;
+    prologue(0, w_rank);
+    unsigned char* ring = stages;
+    auto wait_bar = [&](int id) {
+      const uint32_t t = probe_clock<kProbe>();
+      bar_sync(id, TT::kBarCount);
+      if constexpr (kProbe) waited += probe_clock<kProbe>() - t;
+    };
+
     if (producer) {
-      form(0, 0);
-      fence_async_smem();
-    }
-    __syncthreads();
-    [[maybe_unused]] const uint32_t t_loop = probe_clock<kProbe>();
-    for (int j = 0; j < nt; ++j) {
-      if (producer) {
-        if (j > 0) store(j - 1, (j - 1) & 1, gi == 0);
-        if (j + 1 < nt) form(j + 1, (j + 1) & 1);
+      // One producer's share of a tile: Φx and Φy of its visibility at its 4
+      // x and 4 y. A's rows of rank 0, split on the bits (split_tf32's
+      // values): the real row [Φx_re | Φx_im], the imaginary row
+      // [−Φx_im | Φx_re]. Rank 1's rows carry its weight conj(iμ) = −iμ,
+      // which turns (D_re, D_im) into (μ·D_im, −μ·D_re): μ·[−Φx_im | Φx_re]
+      // and −μ·[Φx_re | Φx_im], hi alone. Past V the tile repeats the last
+      // visibility, whose outputs stage 2 does not store.
+      auto form_turned = [&](int tile, unsigned char* st) {
+        // the slot through an empty asm, so that the addresses of the 14
+        // stores into each of the two slots are not hoisted out of the loop
+        asm volatile("" : "+l"(st));
+        float* a0h = reinterpret_cast<float*>(st);
+        float* a0l = a0h + TT::kBytesA / 4;
+        float* a1h = a0l + TT::kBytesA / 4;
+        float4* phy = reinterpret_cast<float4*>(st + 3 * TT::kBytesA);
+        const int vc = min(tile * kVT + pv, V - 1), t = vc / C, c = vc - t * C;
+        const float kv = __ldg(k + c), muv = __ldg(mu_s + vc);
+        const float uk = __ldg(uvw_s + t * 3) * kv, vk = __ldg(uvw_s + t * 3 + 1) * kv;
+        float rh[4], rl[4], ih[4], il[4], ms[4], mc[4];
+        float2 py[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float sn, cs;
+          sincosf(pox[i] - lx[i] * uk, &sn, &cs);
+          split_tf32_bits(cs, rh[i], rl[i]);
+          split_tf32_bits(sn, ih[i], il[i]);
+          ms[i] = tf32_rn_bits(-muv * sn);
+          mc[i] = tf32_rn_bits(muv * cs);
+          sincosf(poy[i] - my[i] * vk, &sn, &cs);
+          py[i] = make_float2(cs, sn);
+        }
+        // rows (v, re) and (v, im): 8 visibilities' real rows, then their imaginary ones
+        const int re = (pv >> 3) * 16 + (pv & 7), im = re + 8;
+        const int re0 = core_index(re, 4 * pc, TL::kKC), re1 = core_index(re, N + 4 * pc, TL::kKC);
+        const int im0 = core_index(im, 4 * pc, TL::kKC), im1 = core_index(im, N + 4 * pc, TL::kKC);
+        const auto put = [](float* p, const float(&x)[4], float sign) {
+          *reinterpret_cast<float4*>(p) = make_float4(sign * x[0], sign * x[1], sign * x[2], sign * x[3]);
+        };
+        put(a0h + re0, rh, 1.0f);
+        put(a0h + re1, ih, 1.0f);
+        put(a0h + im0, ih, -1.0f);
+        put(a0h + im1, rh, 1.0f);
+        put(a0l + re0, rl, 1.0f);
+        put(a0l + re1, il, 1.0f);
+        put(a0l + im0, il, -1.0f);
+        put(a0l + im1, rl, 1.0f);
+        if (w_rank > 1) {
+          put(a1h + re0, ms, 1.0f);
+          put(a1h + re1, mc, 1.0f);
+          put(a1h + im0, mc, -1.0f);
+          put(a1h + im1, ms, 1.0f);
+        }
+        phy[phy_unit(pv, 2 * pc)] = make_float4(py[0].x, py[0].y, py[1].x, py[1].y);
+        phy[phy_unit(pv, 2 * pc + 1)] = make_float4(py[2].x, py[2].y, py[3].x, py[3].y);
+      };
+      for (int j = 0; j < nt; ++j) {
+        const int slot = j & 1;
+        if (j >= 2) wait_bar(TT::kEmpty + slot);
+        form_turned(j, ring + slot * TT::kSlot);
         fence_async_smem();
-      } else {
-        consume(j & 1, r0, nr);
+        bar_arrive(TT::kFull + slot, TT::kBarCount);
       }
-      probed_sync<kProbe>(waited);
+      if constexpr (kProbe) probe_add(probe, tid, kCons, 0, 0, 0, waited);
+      return;
     }
-    if constexpr (kProbe) loop += probe_clock<kProbe>() - t_loop;
-    if (producer) store(nt - 1, (nt - 1) & 1, gi == 0);
+
+    // A consumer warpgroup takes every other tile: its 32 wgmma m64n128k8
+    // (A its slot's rows, B the lhs's 128 rows (p, y)), rank 0 in three
+    // passes and rank 1 hi·hi into the same accumulators. Accumulator
+    // 4j + 2h + e holds A's row 16·warp + g + 8h, (v, re | im) with
+    // v = 8·warp + g, and column 8j + 2t + e, (p, y) = (j / 4,
+    // 8(j % 4) + 2t + e): D_re and D_im of one visibility at 8 y of each pol.
+    const int ws = __shfl_sync(0xffffffffu, wg, 0);   // wg, warp-uniform: its slot and tiles
+    const int vl = 8 * ((tid & 127) / 32) + (lane >> 2);
+    const unsigned char* slot = ring + ws * TT::kSlot;
+    const uint64_t a0h = smem_desc(slot, kLBO, TL::kSBO);
+    const uint64_t a0l = smem_desc(slot + TT::kBytesA, kLBO, TL::kSBO);
+    const uint64_t a1h = smem_desc(slot + 2 * TT::kBytesA, kLBO, TL::kSBO);
+    const uint64_t b0h = smem_desc(lhs, kLBO, TL::kSBO);
+    const uint64_t b0l = smem_desc(lhs + (size_t)group * TL::kBytesL, kLBO, TL::kSBO);
+    const uint64_t b1h = smem_desc(lhs + TL::kBytesL, kLBO, TL::kSBO);
+    const float4* phy = reinterpret_cast<const float4*>(slot + 3 * TT::kBytesA);
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+    loop = probe_clock<kProbe>();
+    for (int j = ws; j < nt; j += 2) {
+      wait_bar(TT::kFull + ws);
+      // the descriptors through an empty asm each tile, so that the k8
+      // steps' 48 are not hoisted out of the loop beside the accumulators
+      uint64_t da[3] = {a0h, a0l, a1h}, db[3] = {b0h, b0l, b1h};
+#pragma unroll
+      for (int i = 0; i < 3; ++i) asm volatile("" : "+l"(da[i]), "+l"(db[i]));
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < TL::kK / 8; ++ks) {
+        const uint64_t off = ks * 2 * 128 / 16;   // two K chunks a k8 step
+        mma_tf32_step<true>(d, ks == 0, da[0] + off, da[1] + off, db[0] + off, db[1] + off);
+      }
+      if (w_rank > 1) {
+#pragma unroll
+        for (int ks = 0; ks < TL::kK / 8; ++ks) {
+          const uint64_t off = ks * 2 * 128 / 16;
+          wgmma_tf32(d, da[2] + off, db[2] + off, 1);
+        }
+      }
+      wgmma_commit();
+      // Φy at the thread's y = 8jj + 2·t4 and + 1, read while the products run
+      float4 f[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) f[jj] = phy[phy_unit(vl, 4 * jj + t4)];
+      wgmma_wait<0>();
+      fence_regs(d);
+      if (j + 2 < nt) bar_arrive(TT::kEmpty + ws, TT::kBarCount);
+      // stage 2: Σ over the thread's 8 y of conj(Φy) · D, per pol
+      float2 part[kPols];
+#pragma unroll
+      for (int p = 0; p < kPols; ++p) {
+        float re = 0.0f, im = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* dj = d + 4 * (4 * p + jj);
+          re = fmaf(f[jj].x, dj[0], fmaf(f[jj].y, dj[2], re));
+          im = fmaf(f[jj].x, dj[2], fmaf(-f[jj].y, dj[0], im));
+          re = fmaf(f[jj].z, dj[1], fmaf(f[jj].w, dj[3], re));
+          im = fmaf(f[jj].z, dj[3], fmaf(-f[jj].w, dj[1], im));
+        }
+        part[p] = make_float2(re, im);
+      }
+      // the quad's sum over its 32 y: lanes t4 and t4 ^ 2 trade two pols,
+      // then t4 and t4 ^ 1 one, which leaves lane t4 pol t4
+      const bool b2 = t4 & 2, b1 = t4 & 1;
+      float2 k0 = b2 ? part[2] : part[0], k1 = b2 ? part[3] : part[1];
+      const float2 s0 = b2 ? part[0] : part[2], s1 = b2 ? part[1] : part[3];
+      k0 = cadd(k0, make_float2(__shfl_xor_sync(0xffffffffu, s0.x, 2),
+                                __shfl_xor_sync(0xffffffffu, s0.y, 2)));
+      k1 = cadd(k1, make_float2(__shfl_xor_sync(0xffffffffu, s1.x, 2),
+                                __shfl_xor_sync(0xffffffffu, s1.y, 2)));
+      const float2 s = b1 ? k0 : k1;
+      const float2 total = cadd(b1 ? k1 : k0, make_float2(__shfl_xor_sync(0xffffffffu, s.x, 1),
+                                                          __shfl_xor_sync(0xffffffffu, s.y, 1)));
+      const int v = j * kVT + vl;
+      store_live(out_s + (size_t)v * kPols + t4, total, v < V);
+    }
+    loop = probe_clock<kProbe>() - loop;
+  } else {
+    // The ranks in groups that fit shared memory (one group up to rank 2);
+    // per group: the prologue, then tile j multiplied while tile j + 1 is
+    // formed and tile j − 1 stored, one barrier a tile.
+    const int ngroups = (w_rank + group - 1) / group;
+    for (int gi = 0; gi < ngroups; ++gi) {
+      const int r0 = gi * group, nr = min(group, w_rank - r0);
+      prologue(r0, nr);
+      if (producer) {
+        form(0, 0);
+        fence_async_smem();
+      }
+      __syncthreads();
+      [[maybe_unused]] const uint32_t t_loop = probe_clock<kProbe>();
+      for (int j = 0; j < nt; ++j) {
+        if (producer) {
+          if (j > 0) store(j - 1, (j - 1) & 1, gi == 0);
+          if (j + 1 < nt) form(j + 1, (j + 1) & 1);
+          fence_async_smem();
+        } else {
+          consume(j & 1, r0, nr);
+        }
+        probed_sync<kProbe>(waited);
+      }
+      if constexpr (kProbe) loop += probe_clock<kProbe>() - t_loop;
+      if (producer) store(nt - 1, (nt - 1) & 1, gi == 0);
+    }
   }
   if constexpr (kProbe) {
     probe_add(probe, tid, kCons, probe_clock<kProbe>() - t_entry, k3_cycles, loop, waited);
   }
 }
 
-template <int N, bool kFuse, bool kProbe>
+template <int N, bool kFuse, bool kProbe, bool kTurned>
 cudaError_t launch(const float* uvw, const float* mu, const float* k, const float* po_x,
                    const float* po_y, const float* l, const float* m, const float* n,
                    const float* sph, const float2* aterms, const int* aterm_index,
@@ -506,25 +735,26 @@ cudaError_t launch(const float* uvw, const float* mu, const float* k, const floa
   }
   if (err != cudaSuccess) return err;
   // up to rank 2 the hi of each rank and the lo of rank 0 beside the two
-  // stages; above it every rank takes hi and lo, in groups of as many ranks
-  // as fit (all six at N = 16, two at N = 32)
-  const size_t fixed = 2 * TL::kStage + TL::kBytesRed;
+  // stages (turned: the two slots); above it every rank takes hi and lo, in
+  // groups of as many ranks as fit (all six at N = 16, two at N = 32)
+  const size_t fixed = kTurned ? 2 * Turned::kSlot : 2 * TL::kStage + TL::kBytesRed;
   const int group = w_rank <= 2
       ? w_rank
       : min(w_rank, (int)(((size_t)optin - fixed) / (2 * TL::kBytesL)));
   const int nlo = w_rank > 2 ? group : 1;
   const size_t bytes = (size_t)(group + nlo) * TL::kBytesL + fixed;
   if (group < 1 || bytes > (size_t)optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(degridder_kernel<N, kFuse, kProbe>,
+  err = cudaFuncSetAttribute(degridder_kernel<N, kFuse, kProbe, kTurned>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  degridder_kernel<N, kFuse, kProbe><<<S, TL::kThreads, bytes, stream>>>(
+  degridder_kernel<N, kFuse, kProbe, kTurned><<<S, TL::kThreads, bytes, stream>>>(
       uvw, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1, station2,
       subgrids, oyx, wr, out, probe, T, C, nr_stations, w_rank, group);
   return cudaGetLastError();
 }
 
-// The probed instance only for the fused form, and only given an accumulator.
+// The probed instance only for the fused form, and only given an accumulator;
+// the turned product at N = 32 up to rank 2.
 template <bool kFuse>
 int dispatch(const void* uvw, const void* mu, const void* k, const void* po_x,
              const void* po_y, const void* l, const void* m, const void* n, const void* sph,
@@ -545,10 +775,15 @@ int dispatch(const void* uvw, const void* mu, const void* k, const void* po_x,
       (unsigned long long*)probe, S, T, C, nr_stations, w_rank, st
   const bool probed = kFuse && probe != nullptr;
   switch (N) {
-    case 16: return (int)(probed ? launch<16, kFuse, kFuse>(IDG_ARGS)
-                                 : launch<16, kFuse, false>(IDG_ARGS));
-    case 32: return (int)(probed ? launch<32, kFuse, kFuse>(IDG_ARGS)
-                                 : launch<32, kFuse, false>(IDG_ARGS));
+    case 16: return (int)(probed ? launch<16, kFuse, kFuse, false>(IDG_ARGS)
+                                 : launch<16, kFuse, false, false>(IDG_ARGS));
+    case 32:
+      if (w_rank <= 2) {
+        return (int)(probed ? launch<32, kFuse, kFuse, true>(IDG_ARGS)
+                            : launch<32, kFuse, false, true>(IDG_ARGS));
+      }
+      return (int)(probed ? launch<32, kFuse, kFuse, false>(IDG_ARGS)
+                          : launch<32, kFuse, false, false>(IDG_ARGS));
     default: return (int)cudaErrorInvalidValue;
   }
 #undef IDG_ARGS

@@ -43,11 +43,14 @@ __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
 // take four each, with their check for Inf and NaN): the same rounding (to
 // nearest, ties away from zero) done on the bits, adding half of the 13
 // dropped bits' unit and clearing them (ops/precision.py:round_tf32), so hi
-// and lo are split_tf32's, bit for bit.
+// and lo are split_tf32's, bit for bit. tf32_rn_bits is its hi alone.
+__device__ __forceinline__ float tf32_rn_bits(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
 __device__ __forceinline__ void split_tf32_bits(float x, float& hi, float& lo) {
-  hi = __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-  const float r = x - hi;
-  lo = __uint_as_float((__float_as_uint(r) + 0x1000u) & 0xffffe000u);
+  hi = tf32_rn_bits(x);
+  lo = tf32_rn_bits(x - hi);
 }
 
 // d += a · b on one 16×8×8 TF32 tile (mma.sync, the direct rungs K8a and
@@ -330,6 +333,12 @@ __device__ __forceinline__ void mma_bf16_step(float (&d)[K], bool first, uint64_
 // multiple of 32): the producers' own hand-over inside a tile.
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Arrive at named barrier `id` of `count` threads without waiting: the
+// producing side of a hand-over whose consuming side calls bar_sync.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Asynchronous copies of 16 and 4 bytes, global → shared.

@@ -1,6 +1,6 @@
 """Degridder `cuda_v7`: the hand-written CUDA kernel K2 (csrc/degridder.cu,
-the pol-stacked product on the TF32 tensor cores) and its plain PyTorch
-version, on uv subgrids or, with `fuse_oyx`, on the
+the pol-stacked product on the TF32 tensor cores, turned around at N = 32
+up to rank 2) and its plain PyTorch version, on uv subgrids or, with `fuse_oyx`, on the
 range extraction's block-rolled pieces (the fused grid-stage prologue).
 
 `degridder_cuda_v7` dispatches on the device of the staging it is given: a

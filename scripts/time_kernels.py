@@ -60,10 +60,12 @@ def main(argv) -> int:
     for i, line in enumerate(lines):
         for label, stem in (("K1", r"\d+gridder"), ("K2", r"\d+degridder"),
                             ("K4", "grid_add"), ("K9d", "degridder_polstack")):
-            kernel = re.search(rf"{stem}_kernelILi(\d+)E(?:Lb(\d)E)?(?:Lb(\d)E)?", line)
+            kernel = re.search(rf"{stem}_kernelILi(\d+)E(?:Lb(\d)E)?(?:Lb(\d)E)?(?:Lb(\d)E)?",
+                               line)
             if "Compiling entry" in line and kernel:
                 form = {"1": " fused", "0": " non-fused"}.get(kernel.group(2), "")
                 form += " probed" if kernel.group(3) == "1" else ""
+                form += " turned" if kernel.group(4) == "1" else ""
                 print(f"{tag} ptxas {label} N = {kernel.group(1)}{form} |",
                       " | ".join(x.strip() for x in lines[i + 2:i + 4]), flush=True)
 

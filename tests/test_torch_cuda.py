@@ -93,7 +93,10 @@ def test_kernels_match_plain_and_oracle(card, n, channels, w_scale):
 @pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 6])
 def test_k2_matches_plain_at_every_rank(card, n, rank):
     """K2, both forms, against its plain version at every Taylor rank on
-    w ≠ 0 data: at N = 32 above rank 2 the kernel walks the tiles once per
+    w ≠ 0 data (V = 16·7, a ragged last tile): at N = 32 up to rank 2 the
+    turned product (the tile's visibilities the m64 operand, rank 1 folded
+    into it, two consumer warpgroups on alternate tiles), above rank 2 and
+    at N = 16 the pol-stacked one, which at N = 32 walks the tiles once per
     group of two ranks and adds the groups' visibilities."""
     params, obs, sub, _ = _inputs(n, 7, 1000.0)
     md = obs.metadata
