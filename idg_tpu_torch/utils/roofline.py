@@ -1,6 +1,5 @@
 """Roofline of a kernel on the card: the one source of the peaks and the
-bound that `run`'s perf report (`roofline_pct`) and chip_smoke.py's kernel
-table use.
+bound that `run`'s perf report (`roofline_pct`) uses.
 
 The counterpart of ``idg_tpu/utils/roofline.py``, with the published peaks
 of an NVIDIA H100 SXM (NVIDIA's data sheet, dense, at its 700 W limit) per

@@ -10,9 +10,8 @@ unpacked with `git archive` into a directory that .gitignore lists); its
 kernels are built into ROOT/idg_tpu_torch/_build. It prints the ptxas
 registers and spills of the eight direct instances, then for each rung its
 mean error against the f64 oracle, beside its plain version's (on the
-CPU), on the direct gate's problems (chip_smoke.py:direct_oracle_problems,
-taken from this script's own checkout) and on the card test's C = 256
-case, its error against its plain version on the first 512 subgrids of
+CPU), on the direct gate's problems (`direct_oracle_problems`) and on the
+card test's C = 256 case, its error against its plain version on the first 512 subgrids of
 the default problem, and its time on the full problem (min over windows of
 back-to-back launches); each line prefixed with TAG. Compare two checkouts
 in one call, in turns: parent, change, change, parent.
@@ -26,16 +25,41 @@ only.
 from __future__ import annotations
 
 import argparse
-import importlib.util
-import pathlib
+import dataclasses
 import re
 import sys
 import time
 
-HERE = pathlib.Path(__file__).resolve().parents[1]
 DROPS = {"products": 1, "phasors": 2}
 RUNGS = (("gridder", "cuda_v1"), ("gridder", "cuda_v2"),
          ("degridder", "cuda_v1"), ("degridder", "cuda_v2"))
+STRESS_W = 2.0e4     # a w no Taylor rank reaches (tests/test_guards.py:171-185)
+
+
+def direct_oracle_problems():
+    """(label, params, observation, subgrids) of the direct rungs' oracle
+    gate (tests/test_torch_cuda.py:DIRECT_ORACLE_GATE) on the correctness
+    problem (N = 32, T = 128, C = 16): w = 0, w = 2·10⁴, C = 256 at N = 16
+    (32 restarts of the recurrence), C = 7 and 11 (channel groups that are
+    not whole) and T = 37 (a ragged tile of timesteps)."""
+    import numpy as np
+
+    from idg_tpu_torch.config import IDGParams
+    from idg_tpu_torch.data import initialize_subgrids, make_observation
+
+    problems = []
+    for label, over in (("w=0", {}), (f"w={STRESS_W:g}", {}),
+                        ("C = 256, N = 16", dict(subgrid_size=16, nr_channels=256)),
+                        ("C = 7", dict(nr_channels=7)), ("C = 11", dict(nr_channels=11)),
+                        ("T = 37", dict(nr_timesteps_subgrid=37))):
+        p = IDGParams.correctness_defaults(**over)
+        obs, _ = make_observation(p)
+        if label == f"w={STRESS_W:g}":
+            obs = dataclasses.replace(obs, uvw=np.array(obs.uvw, copy=True))
+            obs.uvw[:, :, 2] = STRESS_W
+        problems.append((label, p, obs, np.ascontiguousarray(
+            initialize_subgrids(p.nr_subgrids, p.nr_correlations, p.subgrid_size))))
+    return problems
 
 
 def main(argv) -> int:
@@ -82,14 +106,11 @@ def main(argv) -> int:
         return fn(params, stg) if workload == "gridder" else fn(params, stg, sub)
 
     if not args.drop and not args.no_oracle:
-        spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE / "chip_smoke.py")
-        smoke = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(smoke)
         # and the card test's C = 256 case (tests/test_torch_cuda.py SMALL)
         card = IDGParams(grid_size=128, nr_stations=3, nr_timeslots=2, nr_timesteps_subgrid=16,
                          subgrid_size=16, nr_channels=256)
         obs_c, sub_c = make_observation(card, include_subgrids=True)
-        problems = [*smoke.direct_oracle_problems(),
+        problems = [*direct_oracle_problems(),
                     ("small C = 256", card, obs_c, np.ascontiguousarray(sub_c))]
         for label, p, obs, sub in problems:
             stg, stg_cpu = stage(p, obs, "cuda"), stage(p, obs, "cpu")

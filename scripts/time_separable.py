@@ -13,7 +13,7 @@ and its time on the full problem (min over windows of back-to-back
 launches), each line prefixed with TAG, plus the ptxas registers and spills
 of the N = 32 instances and each rung's mean error against the f64 oracle
 on the correctness problem at w = 0, at rank 4 (w_scale 1000) and on a
-ragged V = 37·7 (the problems of chip_smoke.py's phase 10). Compare two
+ragged V = 37·7 (as `-m cuda tests/test_torch_cuda.py` holds them). Compare two
 checkouts in one call, in turns: parent, change, change, parent.
 """
 

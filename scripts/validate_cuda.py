@@ -11,7 +11,7 @@ the scatter / gather formulations; and both fused pipelines against their
 It runs on the card unless --device cpu is given, which takes the plain
 PyTorch versions instead of the kernels (without a card, --device cuda
 exits 2). A FAILED or ERROR row stays in the table, and the script then
-exits 1. The sections are functions, so chip_smoke.py calls them too.
+exits 1. On the card `-m cuda tests/test_torch_cuda.py` runs it.
 """
 
 from __future__ import annotations

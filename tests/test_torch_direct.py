@@ -10,8 +10,7 @@ normalized-RMS comparator for both comparisons, at w = 0, at
 make_w_observation's default w and at w = 2·10⁴ (no Taylor rank reaches
 that; the direct kernels are exact in w). Observed on the CPU: 5.3e-7 to
 1.3e-6 against the oracle, 3.5e-7 to 5.6e-7 against JAX. The CUDA kernels
-meet their plain versions on the card, in tests/test_torch_cuda.py and
-chip_smoke.py.
+meet their plain versions on the card, in `-m cuda tests/test_torch_cuda.py`.
 """
 
 import dataclasses

@@ -9,7 +9,7 @@ T = 8, C = 8: 64 grid blocks ≤ 2·S, so the range plan takes the tile path
 `degridder_cuda_v7`) run their plain versions; the JAX side runs its Pallas
 kernels in interpret mode and its XLA fallbacks, as its own tests do. The
 CUDA kernels themselves meet these plain versions on the card, in
-tests/test_torch_cuda.py and chip_smoke.py.
+`-m cuda tests/test_torch_cuda.py`.
 
 Gate: the reference's 1e-5 normalized-RMS comparator (`check_error`)
 everywhere, except where an exact equality is stated: the host plans, and

@@ -9,8 +9,7 @@ the per-plane scatter, and the `apply_fft` flags of the plain paths.
 
 On CPU tensors the wrappers run their plain versions; the JAX side runs its
 Pallas kernels in interpret mode, as its own tests do. The CUDA kernels meet
-these plain versions on the card in tests/test_torch_cuda.py and
-chip_smoke.py.
+these plain versions on the card in `-m cuda tests/test_torch_cuda.py`.
 
 Problems (numpy draws, coordinates block-sorted where a range plan needs
 it): "wrap", the wrap-miss data of tests/test_parallel.py:563-577 (G = 512,

@@ -4,8 +4,7 @@ products over all four pols in "3xtf32" (ops/precision.py:dot_mixed), with
 its store of the first product's result transposed per pol, held against
 the float64 DFT and against the JAX package's producer and extraction on
 the same numpy inputs. A few subgrids at N = 16 and 32; the kernel itself
-meets the plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py phases 6, 12 and 13).
+meets the plain versions on the card (`-m cuda tests/test_torch_cuda.py`).
 
 Tolerances: against the float64 DFT, the model's relative RMS error
 (float64 arithmetic) is at most 1.5× the float32 two-matmul plain

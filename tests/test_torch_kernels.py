@@ -11,7 +11,7 @@ Observed on the CPU, over the three cases below:
 - degridder: 3.5e-7 to 5.9e-7 against the oracle, 4.2e-6 to 6.2e-6 against
   JAX (pallas_v7's K-merged bf16 split products drop the lo·lo term, so the
   JAX side is the farther of the two from the oracle). The CUDA kernels themselves meet their plain versions on
-the card, in tests/test_torch_cuda.py and chip_smoke.py.
+the card, in `-m cuda tests/test_torch_cuda.py`.
 """
 
 import dataclasses

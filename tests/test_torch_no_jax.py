@@ -1,8 +1,7 @@
 """The port imports neither JAX nor the JAX package: every module of
-idg_tpu_torch (parallel/ and native/ included) and chip_smoke.py's module
-level import, and the port's scripts trace_tools_cuda.py and
-results_table_cuda.py run, in a fresh interpreter where `jax` and
-`idg_tpu` cannot be imported."""
+idg_tpu_torch (parallel/ and native/ included) imports, and the port's
+scripts trace_tools_cuda.py and results_table_cuda.py run, in a fresh
+interpreter where `jax` and `idg_tpu` cannot be imported."""
 
 import json
 import pathlib
@@ -14,7 +13,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 PROBE = r"""
-import importlib, importlib.util, pkgutil, sys
+import importlib, pkgutil, sys
 sys.modules["jax"] = None        # any `import jax...` now raises ImportError
 sys.modules["idg_tpu"] = None
 import idg_tpu_torch
@@ -22,8 +21,6 @@ names = sorted(m.name for m in pkgutil.walk_packages(idg_tpu_torch.__path__, "id
                if not m.name.endswith("__main__"))   # the CLI's entry runs on import
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if sys.modules[m] is not None and m.split(".")[0] in ("jax", "jaxlib", "idg_tpu"))
 print(" ".join(names))

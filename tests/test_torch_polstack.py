@@ -20,7 +20,7 @@ differ in their sin/cos and summation order, which moves some values
 across a bf16 rounding boundary of the split. Against the oracle 3.3e-6 to
 4.2e-6, as JAX's own (3.4e-6 to 4.2e-6): the split's 2⁻¹⁷ representation
 error. The CUDA kernel meets this plain version on the card, in
-tests/test_torch_cuda.py and chip_smoke.py.
+`-m cuda tests/test_torch_cuda.py`.
 """
 
 import dataclasses

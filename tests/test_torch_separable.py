@@ -19,7 +19,7 @@ to 5.1e-7 in every case but v4/v5 at w_scale 45, where it is 3.2e-7 /
 4.3e-7 (gridder) and 1.43e-6 / 1.46e-6 (degridder): JAX's CPU "default"
 pass is float32, while the port, like the TPU, takes one bf16 pass. The
 CUDA kernels meet these plain versions on the card, in
-tests/test_torch_cuda.py and chip_smoke.py.
+`-m cuda tests/test_torch_cuda.py`.
 
 At every Taylor rank 1–6 the plain cuda_v3 / cuda_v4 meet JAX's
 `pallas_v3_staged` / `pallas_v4_staged` forced to that rank, on the
@@ -56,7 +56,7 @@ from idg_tpu_torch.utils.compare import check_error
 GATE = 1e-5
 VERSIONS = ("v3", "v4", "v5")
 RANK2_W_SCALE = 45.0         # rank 2 with |μ·n| up to 2.3e-3, near rank 2's limit
-ESCALATED_W_SCALE = 1000.0   # the guard picks rank 4 here (chip_smoke.py uses it too)
+ESCALATED_W_SCALE = 1000.0   # the guard picks rank 4 here (the card tests use it too)
 RAGGED = dict(nr_timesteps_subgrid=37, nr_channels=7)   # V = 259: ragged 32-visibility tiles
 
 

@@ -2,7 +2,7 @@
 `time_kernel_sustained`) and `run --sustain S`, on the CPU: the drift on set
 chunk times, the refusal without a card, the option's parsing, and the CSV
 rows `_perf_one` writes, through a stubbed staging and timers (the window
-itself times the card, in chip_smoke.py)."""
+itself times the card, in `-m cuda tests/test_torch_cuda.py`)."""
 
 import dataclasses
 
