@@ -55,6 +55,17 @@
 //    N = 16, in registers), whatever the rank. One rank's accumulators (64
 //    or 16 registers) are live at a time: ranks are issued, waited for and
 //    folded one after another.
+//  - The phasors without control flow: CUDA's sincosf is a fast path and a
+//    Payne–Hanek branch for |x| ≥ 105,615, so each call was a branch
+//    diamond that ptxas does not schedule across, and a producer's 8 a tile
+//    ran one after another. A producer loads uvw and k and forms the phases
+//    of its 4 visibilities first, then evaluates Φx's four with
+//    common.cuh:sincosf_block (sincosf's own fast path as straight-line
+//    code, the same values bit for bit, then one warp-uniform branch to
+//    sincosf for a phase it cannot take: never in the problems run, whose
+//    phases stay below ~1.3e4 rad), then Φy's four the same way. Eight in
+//    one block pushed the fused form to 128 registers and a spill (or, with
+//    the spill cured, ran slower); four at a time, none.
 //  - Warp specialization, so that the formation of the next tile overlaps
 //    the products of this one: one block per subgrid holds the consumer
 //    warpgroups, which issue the products and fold them, and after them
@@ -82,11 +93,13 @@
 //    consecutive rows, so neither the formation nor the tensor cores meet
 //    bank conflicts.
 //  - On the card (default problem, H100, PERF.md §6) the fused form takes
-//    36.1 ms, ~6,020 cycles a tile (transposed: 46.3 ms, ~7,710). Builds
-//    that dropped a role took 29.5 ms with the producers alone, 23.9 with
-//    the consumers alone and 10.8 with neither, so the formation still sets
-//    the pace, though the phase probes read the tensor-core warps waiting
-//    only 0.78% of the tile loop at its barriers (0.25% transposed).
+//    32.9 ms, ~5,480 cycles a tile, non-fused 31.8 (with a branch in each
+//    sincosf: 36.4 and 34.8; transposed: 46.3 fused, ~7,710 cycles). Builds
+//    of the turned form with its branchy sincosf that dropped a role took
+//    29.5 ms with the producers alone, 23.9 with the consumers alone and
+//    10.8 with neither, so the formation set the pace, though the phase
+//    probes read the tensor-core warps waiting only 0.78% of the tile loop
+//    at its barriers (0.25% transposed).
 
 // Fused epilogue (kFuse): the Jones/taper epilogue writes the subgrid split
 // into K3's operand (dft.cuh), and K3 applies the inverse folded-shift DFT
@@ -261,6 +274,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   constexpr int kProd = TL::kProducers;
   [[maybe_unused]] const uint32_t t_entry = probe_clock<kProbe>();
   [[maybe_unused]] uint32_t loop = 0, waited = 0, k3_cycles = 0;   // kProbe's sums
+  [[maybe_unused]] uint32_t form_tiles = 0, form_fast = 0;          // and counts (producers)
 
   extern __shared__ __align__(128) unsigned char smem[];
   const size_t stage_bytes = TL::stage_bytes(w_rank);
@@ -319,24 +333,34 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     const float2* rvis = reinterpret_cast<const float2*>(raw + slot * kRawBytes);
     const float* rmu = reinterpret_cast<const float*>(rvis + kKT * kPols);
     float2 phx[4], phy[4], coef[4];
-    float mu_i[4];
+    float mu_i[4], ax[4], ay[4], sx[4], cx[4], sy[4], cy[4];
     bool live[4];
     int t = (v0 + kc * 4) / C, c = v0 + kc * 4 - t * C;
+    // the phases of all four first, then their phasors: Φx's four, then
+    // Φy's, each as one straight block with one branch after it (above)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       live[i] = kc * 4 + i < nv;
       const float* uvw_t = uvw_s + min(t, T - 1) * 3;
       const float kv = __ldg(k + c);
-      float sn, cs;
-      sincosf(pox - lx * (__ldg(uvw_t) * kv), &sn, &cs);
-      phx[i] = live[i] ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
-      sincosf(poy - my * (__ldg(uvw_t + 1) * kv), &sn, &cs);
-      phy[i] = live[i] ? make_float2(cs, sn) : make_float2(0.0f, 0.0f);
+      ax[i] = pox - lx * (__ldg(uvw_t) * kv);
+      ay[i] = poy - my * (__ldg(uvw_t + 1) * kv);
       mu_i[i] = live[i] ? rmu[kc * 4 + i] : 0.0f;
       coef[i] = make_float2(1.0f, 0.0f);
       const bool wrap = ++c == C;
       c = wrap ? 0 : c;
       t += wrap;
+    }
+    [[maybe_unused]] const bool fallback_x = sincosf_block(ax, sx, cx);
+    [[maybe_unused]] const bool fallback_y = sincosf_block(ay, sy, cy);
+    if constexpr (kProbe) {
+      ++form_tiles;
+      form_fast += fallback_x || fallback_y ? 0u : 1u;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      phx[i] = live[i] ? make_float2(cx[i], sx[i]) : make_float2(0.0f, 0.0f);
+      phy[i] = live[i] ? make_float2(cy[i], sy[i]) : make_float2(0.0f, 0.0f);
     }
     float* w_hi = base;
     float* w_lo = base + TL::kBytesW / 4;
@@ -448,6 +472,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
       }
       if constexpr (kProbe) {
         probe_add(probe, tid, kCons, probe_clock<kProbe>() - t_entry, 0, 0, waited);
+        probe_add_form(probe, tid, form_tiles, form_fast);
       }
       return;
     }
@@ -616,6 +641,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
   }
   if constexpr (kProbe) {
     probe_add(probe, tid, kCons, probe_clock<kProbe>() - t_entry, k3_cycles, loop, waited);
+    if (producer) probe_add_form(probe, tid, form_tiles, form_fast);
   }
 }
 

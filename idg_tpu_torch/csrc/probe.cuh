@@ -4,11 +4,13 @@
 // adds its sums at exit, one atomicAdd a field, into a u64 accumulator that
 // the wrapper passes (utils/trace.py:PROBE_FIELDS, the same order): nothing
 // synchronises inside a pass. Thread 0, consumer warp 0's lane 0, adds every
-// field but `form_wait`, which the first producer warp's lane 0 adds. Each
-// thread keeps its sums in 32-bit registers (a block lives far fewer than
-// 2^32 cycles); every thread reads the clock, so that the reads add no
-// branch in a warp that issues wgmma. The instance without kProbe reads no
-// clock and compiles to the kernel as it was.
+// field but `form_wait`, which the first producer warp's lane 0 adds, and
+// K1's two formation counts, which every producer warp's lane 0 adds (K2
+// leaves them at 0). Each thread keeps its sums in 32-bit registers (a block
+// lives far fewer than 2^32 cycles); every thread reads the clock, so that
+// the reads add no branch in a warp that issues wgmma. The instance without
+// kProbe reads no clock, counts nothing and compiles to the kernel as it
+// was.
 #pragma once
 
 #include <cstdint>
@@ -22,6 +24,8 @@ enum ProbeField {
   kProbeTcWait,    // consumer warp 0 at the tile loop's barriers, until released
   kProbeFormWait,  // the first producer warp at the same barriers
   kProbeBlocks,    // blocks
+  kProbeFormTiles, // K1: tile formations of a producer warp
+  kProbeFormFast,  // K1: those whose phasors all took the straight path (no fallback)
   kProbeFields
 };
 
@@ -55,6 +59,16 @@ __device__ __forceinline__ void probe_add(unsigned long long* probe, int tid, in
     atomicAdd(probe + kProbeBlocks, 1ull);
   } else if (tid == first_producer) {
     atomicAdd(probe + kProbeFormWait, (unsigned long long)waited);
+  }
+}
+
+// a producer warp's formation counts into the accumulator at its exit, by
+// its lane 0
+__device__ __forceinline__ void probe_add_form(unsigned long long* probe, int tid,
+                                               uint32_t tiles, uint32_t fast) {
+  if ((tid & 31) == 0) {
+    atomicAdd(probe + kProbeFormTiles, (unsigned long long)tiles);
+    atomicAdd(probe + kProbeFormFast, (unsigned long long)fast);
   }
 }
 

@@ -54,6 +54,7 @@ SIGNATURES = {
     "idg_gridder_separable": [_P] * 15 + [_I] * 7 + [_P],
     "idg_degridder_separable": [_P] * 15 + [_I] * 7 + [_P],
     "idg_degridder_polstack": [_P] * 15 + [_I] * 6 + [_P],
+    "idg_phasor_check": [_P, ctypes.c_uint, _L] + [_P] * 4,
 }
 
 _library = None

@@ -62,8 +62,11 @@ from typing import Iterator, Optional
 import torch
 
 SAMPLES = 4096     # durations kept a span name, the newest, for its median
-# the fields of a probe accumulator, in the order the kernels add them
-PROBE_FIELDS = ("total", "k3", "loop", "tc_wait", "form_wait", "blocks")
+# the fields of a probe accumulator, in the order the kernels add them;
+# form_tiles and form_fast count K1's producer-warp tile formations and
+# those whose phasors needed no exact fallback (K2 leaves both at 0)
+PROBE_FIELDS = ("total", "k3", "loop", "tc_wait", "form_wait", "blocks", "form_tiles",
+                "form_fast")
 # A probed launch is slower than an unprobed one on an H100, K1 by 1.4% and
 # K2 by 2.7%, and still by 0.8% and 2.4% without the timing of the tile
 # barriers, so under a profiler one launch of a kernel in PROBE_EVERY runs

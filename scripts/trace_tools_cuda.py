@@ -67,6 +67,7 @@ KERNEL_IDS = {
     "vadd_scalar": "K10",
     "grid_add_scatter_kernel": "K11a",
     "grid_add_slots_kernel": "K11b",
+    "phasor_check_kernel": "K1",   # the check of K1's phasors (tests only)
 }
 
 _BASE = re.compile(r"^(?:void\s+)?(?:(?:\(anonymous namespace\)|\w+)::)*(\w+)\s*(?:<(.*?)>)?\s*(?:\(|$)")

@@ -18,6 +18,7 @@ time_separable.py time the kernels alone, and benchmark/ times the passes.
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import pathlib
 import re
@@ -499,6 +500,126 @@ def test_probed_k1_and_k2_match_unprobed_bitwise_and_sum_their_phases(card, prob
     trace.reset()
 
 
+def _probed_k1_counts(params, stg, oyx, rank):
+    """The fused K1's formation counts of one probed launch (and K2's, of
+    one launch on its pieces), and K1's pieces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from idg_tpu_torch.utils import trace
+
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pieces = kernels.gridder_cuda_v6_pieces(params, stg, oyx, rank)
+        kernels.degridder_cuda_v7(params, stg, pieces, rank, fuse_oyx=oyx)
+    torch.cuda.synchronize()
+    sums = trace.snapshot()["probes"]
+    trace.reset()
+    return sums["gridder_cuda_v6_pieces"], sums["degridder_cuda_v7_fused"], pieces
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem", ["default", "n16", "beyond-fast-path"])
+def test_probed_k1_counts_its_formations(card, problem):
+    """The probed K1 counts each producer warp's tile formations
+    (form_tiles: subgrids × tiles × N·8/32 warps) and those whose phasors
+    all took sincosf's straight path (form_fast): all of them on the
+    default problem and at N = 16, fewer where the phases pass 105,615 rad
+    (uvw × 10^4 on the first 512 subgrids, whose phases reach ~22 rad),
+    whose pieces stay finite. K2 leaves both at 0."""
+    params = IDGParams() if problem != "n16" else IDGParams(subgrid_size=16, **SMALL)
+    obs = make_perf_observation(params)
+    md = obs.metadata
+    stg = stage(params, obs, card)
+    oyx = torch.from_numpy(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size,
+                                              params.subgrid_size)).to(card)
+    if problem == "beyond-fast-path":
+        stg = slice_staged(stg, 0, COMPARE_SUBGRIDS)
+        stg = dataclasses.replace(stg, uvw=stg.uvw * 1e4)
+        oyx = oyx[:COMPARE_SUBGRIDS]
+    rank = _resolve("gridder", "cuda_v6", params, obs)[1] or 2
+    k1, k2, pieces = _probed_k1_counts(params, stg, oyx, rank)
+    n, v = params.subgrid_size, params.nr_timesteps_subgrid * params.nr_channels
+    tiles = stg.nr_subgrids * -(-v // 32) * (n * 8 // 32)
+    assert k1["launches"] == 1 and k1["form_tiles"] == tiles, k1
+    if problem == "beyond-fast-path":
+        assert 0 < k1["form_tiles"] - k1["form_fast"], k1
+        assert torch.isfinite(torch.view_as_real(pieces)).all()
+    else:
+        assert k1["form_fast"] == k1["form_tiles"], k1
+    assert k2["form_tiles"] == k2["form_fast"] == 0, k2
+
+
+def _phasor_arguments(case, default_problem):
+    """Float32 arguments on the card for the phasor check: 2^24 spread
+    uniformly over ±105,615 and 2^24 of log-uniform magnitude (1e-38 to
+    105,615, either sign); the edges; the default problem's phases."""
+    dev = torch.device("cuda")
+    if case == "spread":
+        gen = torch.Generator(device=dev).manual_seed(24)
+        uniform = torch.empty(2**24, device=dev).uniform_(-105615.0, 105615.0, generator=gen)
+        mag = torch.exp(torch.empty(2**24, device=dev, dtype=torch.float64)
+                        .uniform_(math.log(1e-38), math.log(105615.0), generator=gen))
+        sign = torch.randint(0, 2, (2**24,), device=dev, generator=gen) * 2 - 1
+        return torch.cat([uniform, (mag * sign).float()])
+    if case == "edges":
+        f32 = np.float32
+        vals = [0.0, f32(1e-45), f32(1e-40), np.finfo(f32).tiny, f32(1e-30), f32(1e-4),
+                105615.0, 1e6, 1e30, np.finfo(f32).max, np.inf, np.nan]
+        for k in (1, 2, 3, 4, 5, 7, 8, 64, 255, 1001, 4096, 40000, 67000, 67237):
+            vals += [f32(k * math.pi / 2), f32((k + 0.5) * math.pi / 2)]
+        x = lo = hi = np.array(vals, f32)
+        near = [x]
+        for _ in range(4):
+            with np.errstate(over="ignore"):
+                lo, hi = np.nextafter(lo, f32(0)), np.nextafter(hi, f32(np.inf))
+            near += [lo, hi]
+        x = np.concatenate(near)
+        payload_nan = np.array([0x7FC01234], np.uint32).view(f32)
+        x = np.concatenate([x, -x, payload_nan])
+        return torch.from_numpy(x).to(dev)
+    params, md, stg, *_ = default_problem
+    pick = torch.linspace(0, stg.nr_subgrids - 1, 256, device=dev).long()
+    k = stg.wavenumbers
+    uk = (stg.uvw[pick, :, 0, None] * k).reshape(len(pick), -1, 1)
+    vk = (stg.uvw[pick, :, 1, None] * k).reshape(len(pick), -1, 1)
+    phases = []
+    for ak, po, lm in ((uk, stg.po_x[pick, None, :], stg.l), (vk, stg.po_y[pick, None, :], stg.m)):
+        # pox − lx·(u·k) as K1 forms it, one fused multiply-add
+        phases.append((po.double() - lm.double() * ak.double()).float().reshape(-1))
+    return torch.cat(phases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["every-pattern", "spread", "edges", "default-phases"])
+def test_phasor_block_matches_sincosf_bitwise(card, default_problem, case):
+    """csrc/common.cuh:sincosf_block, as K1's producers call it (4 phasors
+    a lane, one warp-uniform fallback), gives sincosf's sine and cosine bit
+    for bit (csrc/phasor_check.cu): on every float32 bit pattern (2^32,
+    counted on the card), on 2^25 spread arguments, on the edges (±0,
+    subnormals, k·π/2 and (k + ½)·π/2 ± 4 ulps, ±105,615 and its
+    neighbours, ±1e6, ±inf, NaN) and on the default problem's own phases
+    (256 subgrids spread over its block-sorted order, both axes).
+    Arguments from 105,615 up, ±inf and NaN go through the fallback."""
+    from idg_tpu_torch.ops.cuda import phasors
+
+    if case == "every-pattern":
+        _, _, counts = phasors.phasor_check(first=0, count=2**32, device=card)
+        assert counts["flagged"] == 2 * (0x80000000 - 0x47CE4780), counts
+        assert counts["fallbacks"] > 0 and counts["differ"] == 0, counts
+        return
+    x = _phasor_arguments(case, default_problem)
+    got, want, counts = phasors.phasor_check(x)
+    assert counts["differ"] == 0, counts
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    flagged = int((~(x.abs() < 105615.0)).sum())
+    assert counts["flagged"] == flagged
+    if case == "edges":
+        assert flagged > 0 and counts["fallbacks"] > 0
+    if case == "default-phases":
+        assert flagged == 0 and counts["fallbacks"] == 0 and x.abs().max() > 10.0
+        print(f"default problem's phases: |x| up to {x.abs().max().item():.1f} rad")
+
+
 def _piece_problem(n, g, s):
     """Block-sorted coordinates with ten subgrids on the last block column
     (so that merged groups have wrap misses) and c64 uv subgrids."""
@@ -923,6 +1044,28 @@ def test_kernel_instances_build_without_spills_on_their_units(built, label, patt
     if base is not None:
         (plain,) = [fn for fn in sass if base in fn]
         assert ops["HGMMA"] > count(plain, r"\bHGMMA\b")
+
+
+@pytest.mark.cuda
+def test_k1_instances_spill_nothing_in_128_registers(built):
+    """Every instance of K1 (N = 16, 32 × fused, non-fused × probed) builds
+    without a spill in at most 128 registers (512 threads at N = 32); their
+    ptxas lines are printed."""
+    from idg_tpu_torch.ops.cuda import build
+
+    spills, _ = built
+    regs, name = {}, None
+    for line in build.build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        name = entry.group(1) if entry else name
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            regs[name] = int(used.group(1))
+    k1 = sorted(fn for fn in spills if "14gridder_kernelI" in fn)
+    assert len(k1) == 6, k1
+    for fn in k1:
+        print(f"{fn}: {regs[fn]} registers, spills {spills[fn]}")
+        assert spills[fn] == (0, 0) and regs[fn] <= 128, (fn, regs[fn], spills[fn])
 
 
 # The CLI's small problems (the reference's env vars): a dense range plan

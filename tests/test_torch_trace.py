@@ -498,15 +498,40 @@ def test_snapshot_decodes_a_probe_accumulator():
     buf = got[0]
     assert [g is buf for g in got] == ([True] + [False] * (every - 1)) * 2 + [True]
     assert all(g is None for g in got if g is not buf)
-    assert buf.dtype == torch.int64 and buf.tolist() == [0] * len(ttrace.PROBE_FIELDS)
-    buf.copy_(torch.tensor([5_000_000_000, 70, 4_000, 1_500, 900, 24_500]))
+    assert ttrace.PROBE_FIELDS[-2:] == ("form_tiles", "form_fast")
+    assert buf.dtype == torch.int64 and buf.tolist() == [0] * len(ttrace.PROBE_FIELDS) == [0] * 8
+    buf.copy_(torch.tensor([5_000_000_000, 70, 4_000, 1_500, 900, 24_500, 12_544_000,
+                            12_543_990]))
     assert meta.device.type == "meta"
-    tracer.probes[("k", torch.device("meta"))] = torch.tensor([1, 2, 3, 4, 5, 6])
+    tracer.probes[("k", torch.device("meta"))] = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8])
     assert tracer.snapshot()["probes"] == {"k": dict(
         total=5_000_000_001, k3=72, loop=4_003, tc_wait=1_504, form_wait=905, blocks=24_506,
-        launches=4)}
+        form_tiles=12_544_007, form_fast=12_543_998, launches=4)}
     tracer.reset()
     assert tracer.snapshot()["probes"] == {}
+
+
+@pytest.mark.parametrize("probes,want", [
+    ({"gridder_cuda_v6_pieces": dict(total=9, form_tiles=12_544_000, form_fast=12_543_000)},
+     100.0 * 12_543_000 / 12_544_000),
+    ({"gridder_cuda_v6_pieces": dict(form_tiles=800, form_fast=800)}, 100.0),
+    ({"gridder_cuda_v6_pieces": dict(form_tiles=0, form_fast=0)}, None),
+    ({"degridder_cuda_v7_fused": dict(form_tiles=0, form_fast=0)}, None),
+    ({"gridder_cuda_v6_pieces": dict(total=9, k3=1, loop=5, tc_wait=1, form_wait=1,
+                                     blocks=1)}, None),
+    ({}, None),
+], ids=["fallbacks", "all-fast", "no-formation", "no-gridder-probe", "older-probes",
+        "no-probed-launch"])
+def test_gridder_form_fast_pct_reads_the_probe_counts(monkeypatch, probes, want):
+    """benchmark/metrics/gridder_form_fast_pct.py: 100 · Σform_fast /
+    Σform_tiles of the fused K1's probe sums; None where no probed K1
+    launch ran, where it formed nothing, or where the probes lack the two
+    counts (a program before them)."""
+    from benchmark import catalog
+
+    monkeypatch.setattr(ttrace, "snapshot", lambda: dict(spans={}, probes=probes))
+    got = catalog.load_reader("gridder_form_fast_pct")(None)
+    assert got == (None if want is None else pytest.approx(want))
 
 
 def test_guard_warnings_name_the_callers_line():
