@@ -18,7 +18,7 @@ import torch
 
 from ..config import IDGParams
 from ..types import Observation
-from ..utils.trace import span
+from ..utils import trace
 from .common import MAX_W_RANK, stage, uniform_channel_spacing
 from .registry import get_kernel
 
@@ -79,7 +79,10 @@ def required_w_rank(params: IDGParams, obs: Observation,
                     tol: float = W_TAYLOR_TOL) -> int | None:
     """Smallest Taylor rank r with truncation bound |μ·n|^r / r! < tol, or
     None when no rank ≤ MAX_W_RANK suffices."""
-    x = max_mu_n(params, obs)
+    return _rank_for_bound(max_mu_n(params, obs), tol)
+
+
+def _rank_for_bound(x: float, tol: float = W_TAYLOR_TOL) -> int | None:
     for r in range(1, MAX_W_RANK + 1):
         if x ** r / math.factorial(r) < tol:
             return r
@@ -92,7 +95,7 @@ def _accepts(workload: str, version: str, param: str) -> bool:
 
 
 # the warnings' stacklevel counts the span's frame: they name the caller's caller
-@span("idg.stage.resolve")
+@trace.span("idg.stage.resolve")
 def _resolve(workload: str, version: str, params: IDGParams,
              obs: Observation, w_rank=None):
     """Apply the API-boundary correctness guards; returns (version, w_rank),
@@ -110,6 +113,9 @@ def _resolve(workload: str, version: str, params: IDGParams,
 
     An explicit w_rank is an override (benchmark knob), with a warning when
     it is below the required rank, or when the kernel takes no rank.
+
+    Where it computes the required rank, it keeps the |μ·n| bound that rank
+    came from under `idg.w_mu_n.<workload>` (utils/trace.py:keep_bound).
     """
     entry = get_kernel(workload, version)
     if entry.uniform_channels and not uniform_channel_spacing(obs.wavenumbers):
@@ -129,8 +135,11 @@ def _resolve(workload: str, version: str, params: IDGParams,
 
     takes_rank = _accepts(workload, version, "w_rank")
     # a host pass over the observation's w values; the direct kernels never read it
-    need = (required_w_rank(params, obs)
-            if takes_rank or entry.fixed_w_rank is not None else None)
+    need = None
+    if takes_rank or entry.fixed_w_rank is not None:
+        bound = max_mu_n(params, obs)
+        trace.keep_bound(f"idg.w_mu_n.{workload}", bound)
+        need = _rank_for_bound(bound)
     if w_rank is not None:
         if takes_rank:
             if need is not None and w_rank < need:

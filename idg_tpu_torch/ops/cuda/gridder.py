@@ -24,6 +24,7 @@ from . import build
 DEFAULT_W_RANK = 2
 SUBGRID_SIZES = (16, 32)   # the N the kernels are compiled for
 PLAIN_CHUNK = 32           # subgrids per plain-version step (bounds temporaries)
+RANK_COUNTER = "idg.w_rank.gridder"   # K1's launches by Taylor rank (utils/trace.py)
 
 
 def taylor_coefficients(mu: torch.Tensor, w_rank: int):
@@ -163,10 +164,12 @@ def ptr(t: torch.Tensor) -> int:
 def gridder_cuda_v6(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):
     """Gridder on a staging: the plain version for a CPU staging, the CUDA
     kernel for a CUDA staging. Returns c64[S, P, N, N] on the staging's
-    device. `gridder_cuda_v6.launches` counts kernel launches."""
+    device. `gridder_cuda_v6.launches` counts kernel launches, and
+    RANK_COUNTER each launch (or plain call) by its Taylor rank."""
     _check_staged(params, stg, w_rank)
     device = stg.device
     if device.type == "cpu":
+        trace.count_rank(RANK_COUNTER, w_rank)
         return gridder_plain(params, stg, w_rank)
     if device.type != "cuda":
         raise ValueError(f"gridder_cuda_v6 runs on cpu or cuda, not {device}")
@@ -188,6 +191,7 @@ def gridder_cuda_v6(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK
         )
     build.check(rc, "gridder_cuda_v6")
     gridder_cuda_v6.launches += 1
+    trace.count_rank(RANK_COUNTER, w_rank)
     return out
 
 
@@ -226,7 +230,8 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
     ops/grid.py:subgrids_to_grid_ranges(tiles=...) adds into the grid.
     `oyx` is the i32[S, 2] per-subgrid roll (ops/grid.py:roll_offsets) on
     the staging's device. `gridder_cuda_v6_pieces.launches` counts kernel
-    launches. While a profiler records, one launch in
+    launches, and RANK_COUNTER (`idg.w_rank.gridder`) each launch (or
+    plain call) by its Taylor rank. While a profiler records, one launch in
     utils/trace.py:PROBE_EVERY runs probed (utils/trace.py:probe)."""
     _check_staged(params, stg, w_rank)
     device = stg.device
@@ -234,6 +239,7 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
     N, P = params.subgrid_size, params.nr_correlations
     _check_tensor("oyx", oyx, torch.int32, (S, 2), device)
     if device.type == "cpu":
+        trace.count_rank(RANK_COUNTER, w_rank)
         return gridder_v6_pieces_plain(params, stg, oyx, w_rank)
     if device.type != "cuda":
         raise ValueError(f"gridder_cuda_v6_pieces runs on cpu or cuda, not {device}")
@@ -256,6 +262,7 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
         )
     build.check(rc, "gridder_cuda_v6_pieces")
     gridder_cuda_v6_pieces.launches += 1
+    trace.count_rank(RANK_COUNTER, w_rank)
     return out
 
 

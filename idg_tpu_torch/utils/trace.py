@@ -26,12 +26,18 @@ the fused K1 and K2, and the profiler window.
                     name, its newest SAMPLES pairs; their milliseconds are
                     read when a snapshot is taken. The caller marks only
                     while it traces.
+    count_rank(name, rank), keep_bound(name, value)
+                    the w-term's tallies, host-side dict updates with no
+                    device work: `count_rank` adds one launch to the Taylor
+                    rank it ran, `keep_bound` keeps a guard's newest |μ·n|
+                    bound.
     snapshot()      the spans' aggregates and each kernel's probe sums,
                     copied to the host once, and, where intervals were
                     kept, each counter's count and median ms; on rank 0 of
                     a local world (parallel/world.py) also every rank's
-                    median, gathered from the ranks when it is taken.
-    reset()         clears all three.
+                    median, gathered from the ranks when it is taken; and,
+                    where any were kept, the w-term's tallies.
+    reset()         clears all four.
     trace_window(profile_dir, label)
                     runs a body inside `torch.profiler` and exports its
                     Chrome trace (utils/timing.py:time_kernel's hook,
@@ -42,8 +48,13 @@ guards, ops/common.py's staging), the pass spans `idg.gridder`,
 `idg.grid_add` (with `idg.kernel.grid_add` inside), `idg.grid_extract` and
 `idg.degridder`; the local world's `idg.mesh.launch`, `idg.mesh.shard`,
 `idg.mesh.stage` and `idg.mesh.reduce` (parallel/). The counter
-`idg.mesh.local_pass` times a rank's K1 and K4 of a sharded pass. No span
-runs inside a loop over subgrids or tiles.
+`idg.mesh.local_pass` times a rank's K1 and K4 of a sharded pass. The
+w-term's tallies: `idg.w_rank.gridder`, {Taylor rank: launches} of the
+gridder's K1 (ops/cuda/gridder.py: `gridder_cuda_v6` and
+`gridder_cuda_v6_pieces`, a call of their plain versions on the CPU
+counting as one), and `idg.w_mu_n.<workload>`, the |μ·n| bound the guard
+computed last for that workload (ops/api.py:_resolve). No span runs inside
+a loop over subgrids or tiles.
 """
 
 from __future__ import annotations
@@ -97,6 +108,8 @@ class Tracer:
             self.probe_calls = collections.Counter()   # (kernel, device) -> calls while profiling
             self.probed = collections.Counter()        # (kernel, device) -> probed launches
             self.intervals = {}  # name -> newest (start, end) marks
+            self.ranks = {}      # name -> Counter of launches by Taylor rank
+            self.bounds = {}     # name -> newest |μ·n| bound
 
     def _stack(self) -> list:
         """This thread's open spans, each (start ns, profiler range or None)."""
@@ -142,6 +155,14 @@ class Tracer:
                 rows = self.intervals[name] = collections.deque(maxlen=SAMPLES)
             rows.append((start, end))
 
+    def count_rank(self, name: str, rank: int) -> None:
+        with self._lock:
+            self.ranks.setdefault(name, collections.Counter())[int(rank)] += 1
+
+    def keep_bound(self, name: str, value: float) -> None:
+        with self._lock:
+            self.bounds[name] = float(value)
+
     def interval_medians(self) -> dict:
         """{name: (count, median ms)} of the kept intervals of this
         process, waiting for each one's closing event."""
@@ -170,6 +191,8 @@ class Tracer:
                                 median_s=statistics.median(d) * 1e-9)
                      for name, (c, t, top, d) in self.aggregates.items()}
             probes = [(key, buf, self.probed[key]) for key, buf in self.probes.items()]
+            w_term = {name: dict(ranks) for name, ranks in self.ranks.items()}
+            w_term.update(self.bounds)
         sums = {}
         for (kernel, _), buf, launches in probes:
             got = sums.setdefault(kernel, dict.fromkeys(PROBE_FIELDS + ("launches",), 0))
@@ -179,6 +202,8 @@ class Tracer:
         out = dict(spans=spans, probes=sums)
         if counters:
             out["counters"] = counters
+        if w_term:
+            out["w_term"] = w_term
         return out
 
 
@@ -253,6 +278,14 @@ def mark(device):
 
 def add_interval(name: str, start, end) -> None:
     TRACER.add_interval(name, start, end)
+
+
+def count_rank(name: str, rank: int) -> None:
+    TRACER.count_rank(name, rank)
+
+
+def keep_bound(name: str, value: float) -> None:
+    TRACER.keep_bound(name, value)
 
 
 def reset() -> None:
