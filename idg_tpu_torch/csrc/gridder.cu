@@ -45,9 +45,17 @@
 //    split_tf32's values on the integer pipe (below).
 //  - TF32 in three passes: x = hi + lo, hi = tf32(x), lo = tf32(x − hi),
 //    and lo·hi + hi·lo + hi·hi into float32 (~22 bits of each operand, so
-//    gridder_plain, float32 "highest", stays the reference). Rank 1 at
-//    rank ≤ 2 takes hi·hi alone (|μ·n| < 2.5e-3 of the signal,
-//    ops/precision.py); escalated ranks take three passes.
+//    gridder_plain, float32 "highest", stays the reference), or hi·hi
+//    alone for a Taylor term small enough (2^-10 of it): the ranks below
+//    the host's `three_ranks` (ops/precision.py:gridder_three_pass_ranks)
+//    take three. Rank 0 always does; rank 1 at rank ≤ 2 does not (|μ·n| <
+//    2.5e-3 of the signal); above rank 2 the highest ranks take one pass
+//    while the staged rows' |μ·n| bound keeps their summed error under the
+//    guard's 3e-6 (at |μ·n| 0.169 and rank 5, ranks 3 and 4: 11 passes a
+//    tile instead of 15). The producers store lo by wgmma.cuh's
+//    three_passes (every rank of an escalated product), whether the
+//    consumers read it or not: with k1_three_passes there, the fused
+//    N = 32 instance took 128 registers and spilled 20 B.
 //  - The tensor cores' float32 accumulation truncates, so each tile's sum
 //    (32 visibilities) is folded into a running sum in round-to-nearest
 //    FADDs, with the rank combine Σ_r n^r folded in: the running sum is one
@@ -177,6 +185,14 @@ struct Tile {
   static_assert(idg::Dft<N>::kGroups * 128 <= kConsumers, "K3 runs on consumer warpgroups");
 };
 
+// Whether Taylor rank r takes three TF32 passes (else hi·hi alone): the
+// host's rule (ops/precision.py:gridder_three_pass_ranks) gives three to
+// the lowest ranks, so K1 takes their count. The consumers' rule; K2 and the
+// bf16 rungs keep wgmma.cuh:three_passes.
+__device__ __forceinline__ bool k1_three_passes(int r, int three_ranks) {
+  return r < three_ranks;
+}
+
 // Rank r's products over one tile of the stage at `stage`, this
 // warpgroup's slab, into acc (three TF32 passes, or hi·hi alone), inside the
 // caller's commit group.
@@ -266,7 +282,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
     const float* __restrict__ wr,           // [2, 2N, 2N] K3's split factors, inverse (kFuse only)
     float2* __restrict__ out,               // [S, P, N, N] subgrids, or pieces with kFuse
     unsigned long long* __restrict__ probe, // [kProbeFields] phase cycles (kProbe only)
-    int T, int C, int nr_stations, int w_rank, int stages) {
+    int T, int C, int nr_stations, int w_rank, int three_ranks, int stages) {
   using namespace idg;
   using TL = Tile<N>;
   constexpr int kThreads = TL::kThreads;
@@ -412,7 +428,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
         float* hi = l_hi + (size_t)r * TL::kBytesL / 4;
         *reinterpret_cast<float4*>(hi + re) = make_float4(rh[0], rh[1], rh[2], rh[3]);
         *reinterpret_cast<float4*>(hi + im) = make_float4(ih[0], ih[1], ih[2], ih[3]);
-        if (idg::three_passes(r, w_rank)) {
+        if (idg::three_passes(r, w_rank)) {   // not k1_three_passes: see the header
           float* lo = l_lo + (size_t)r * TL::kBytesL / 4;
           *reinterpret_cast<float4*>(lo + re) = make_float4(rl[0], rl[1], rl[2], rl[3]);
           *reinterpret_cast<float4*>(lo + im) = make_float4(il[0], il[1], il[2], il[3]);
@@ -493,7 +509,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
         for (int r = 0; r < w_rank; ++r) {
           fence_regs(acc);
           wgmma_fence();
-          if (idg::three_passes(r, w_rank)) {
+          if (k1_three_passes(r, three_ranks)) {
             mma_rank_turned<N, true>(stage, slab, r, w_rank, acc);
           } else {
             mma_rank_turned<N, false>(stage, slab, r, w_rank, acc);
@@ -529,7 +545,7 @@ __global__ void __launch_bounds__(Tile<N>::kThreads, Tile<N>::kMinBlocks) gridde
         for (int r = 0; r < w_rank; ++r) {
           fence_regs(acc);
           wgmma_fence();
-          if (idg::three_passes(r, w_rank)) {
+          if (k1_three_passes(r, three_ranks)) {
             mma_rank<N, true>(stage, slab, r, w_rank, acc);
           } else {
             mma_rank<N, false>(stage, slab, r, w_rank, acc);
@@ -651,7 +667,8 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
                    const float* n, const float* sph, const float2* aterms,
                    const int* aterm_index, const int* station1, const int* station2,
                    const int* oyx, const float* wr, float2* out, unsigned long long* probe,
-                   int S, int T, int C, int nr_stations, int w_rank, cudaStream_t stream) {
+                   int S, int T, int C, int nr_stations, int w_rank, int three_ranks,
+                   cudaStream_t stream) {
   using TL = Tile<N>;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -670,7 +687,7 @@ cudaError_t launch(const float* uvw, const float2* vis, const float* mu, const f
   if (err != cudaSuccess) return err;
   gridder_kernel<N, kFuse, kProbe><<<S, TL::kThreads, bytes, stream>>>(
       uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index, station1,
-      station2, oyx, wr, out, probe, T, C, nr_stations, w_rank, stages);
+      station2, oyx, wr, out, probe, T, C, nr_stations, w_rank, three_ranks, stages);
   return cudaGetLastError();
 }
 
@@ -681,8 +698,9 @@ int dispatch(const void* uvw, const void* vis, const void* mu, const void* k,
              const void* n, const void* sph, const void* aterms, const void* aterm_index,
              const void* station1, const void* station2, const void* oyx, const void* wr,
              void* out, void* probe, int S, int T, int C, int N, int nr_stations, int w_rank,
-             void* stream) {
-  if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank) {
+             int three_ranks, void* stream) {
+  if (S <= 0 || T <= 0 || C <= 0 || w_rank < 1 || w_rank > idg::kMaxWRank ||
+      three_ranks < 1 || three_ranks > w_rank) {
     return (int)cudaErrorInvalidValue;
   }
   auto* st = static_cast<cudaStream_t>(stream);
@@ -692,7 +710,7 @@ int dispatch(const void* uvw, const void* vis, const void* mu, const void* k,
       (const float*)n, (const float*)sph, (const float2*)aterms,                       \
       (const int*)aterm_index, (const int*)station1, (const int*)station2,             \
       (const int*)oyx, (const float*)wr, (float2*)out,                                 \
-      (unsigned long long*)probe, S, T, C, nr_stations, w_rank, st
+      (unsigned long long*)probe, S, T, C, nr_stations, w_rank, three_ranks, st
   const bool probed = kFuse && probe != nullptr;
   switch (N) {
     case 16: return (int)(probed ? launch<16, kFuse, kFuse>(IDG_ARGS)
@@ -711,10 +729,10 @@ extern "C" int idg_gridder_v6(
     const void* po_y, const void* l, const void* m, const void* n, const void* sph,
     const void* aterms, const void* aterm_index, const void* station1,
     const void* station2, void* out, int S, int T, int C, int N, int nr_stations,
-    int w_rank, void* stream) {
+    int w_rank, int three_ranks, void* stream) {
   return dispatch<false>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
                          station1, station2, nullptr, nullptr, out, nullptr, S, T, C, N,
-                         nr_stations, w_rank, stream);
+                         nr_stations, w_rank, three_ranks, stream);
 }
 
 // The fused form: `out` receives the block-rolled image-domain pieces; a
@@ -725,8 +743,8 @@ extern "C" int idg_gridder_v6_pieces(
     const void* po_y, const void* l, const void* m, const void* n, const void* sph,
     const void* aterms, const void* aterm_index, const void* station1,
     const void* station2, const void* oyx, const void* wr, void* out, void* probe, int S,
-    int T, int C, int N, int nr_stations, int w_rank, void* stream) {
+    int T, int C, int N, int nr_stations, int w_rank, int three_ranks, void* stream) {
   return dispatch<true>(uvw, vis, mu, k, po_x, po_y, l, m, n, sph, aterms, aterm_index,
                         station1, station2, oyx, wr, out, probe, S, T, C, N, nr_stations,
-                        w_rank, stream);
+                        w_rank, three_ranks, stream);
 }

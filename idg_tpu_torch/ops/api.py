@@ -19,7 +19,7 @@ import torch
 from ..config import IDGParams
 from ..types import Observation
 from ..utils import trace
-from .common import MAX_W_RANK, stage, uniform_channel_spacing
+from .common import MAX_W_RANK, max_mu_n, stage, uniform_channel_spacing
 from .registry import get_kernel
 
 # Comfortably inside the 1e-5 normalized-RMS comparator gate
@@ -51,30 +51,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def max_mu_n(params: IDGParams, obs: Observation) -> float:
-    """Host-side upper bound on |μ·n| = |(w_off − w·k)·n|, the argument of
-    the kernels' rank-w Taylor of e^{iμ·n}, from per-subgrid w and k
-    extremes (idg_tpu/ops/api.py:61 semantics)."""
-    w = np.asarray(obs.uvw, np.float64)[..., 2].reshape(-1)
-    k = np.asarray(obs.wavenumbers, np.float64)
-    md = obs.metadata
-    t = params.nr_timesteps_subgrid
-    idx = np.asarray(md.time_offset, np.int64)[:, None] + np.arange(t)
-    ws = w[idx]                                        # [S, T]
-    w_lo, w_hi = ws.min(axis=1), ws.max(axis=1)        # [S]
-    k_lo, k_hi = float(k.min()), float(k.max())
-    wk = np.stack([w_lo * k_lo, w_lo * k_hi, w_hi * k_lo, w_hi * k_hi])
-    wk_lo, wk_hi = wk.min(axis=0), wk.max(axis=0)      # [S]
-    z = np.asarray(md.coord_z, np.float64)
-    w_off = 2.0 * np.pi * float(params.w_step) * (z + 0.5)
-    mu_abs = float(np.maximum(np.abs(w_off - wk_lo), np.abs(w_off - wk_hi)).max())
-    # n_max over the subgrid (math.hpp:19-24 stable form), f64
-    half = params.image_size / 2.0
-    tmp = 2.0 * half * half  # l² + m² at the subgrid corner
-    n_max = tmp / (1.0 + math.sqrt(max(0.0, 1.0 - tmp))) if tmp <= 1.0 else 1.0
-    return float(mu_abs * n_max)
-
-
 def required_w_rank(params: IDGParams, obs: Observation,
                     tol: float = W_TAYLOR_TOL) -> int | None:
     """Smallest Taylor rank r with truncation bound |μ·n|^r / r! < tol, or
@@ -89,6 +65,18 @@ def _rank_for_bound(x: float, tol: float = W_TAYLOR_TOL) -> int | None:
     return None
 
 
+class Resolved(tuple):
+    """What `_resolve` returns: the pair (version, w_rank), and as `mu_n`
+    the |μ·n| bound the guard computed for it, inf where it computed none
+    (no kernel that takes no rank reads one), for the staging
+    (ops/common.py:stage)."""
+
+    def __new__(cls, version: str, w_rank, mu_n: float = math.inf):
+        out = super().__new__(cls, (version, w_rank))
+        out.mu_n = mu_n
+        return out
+
+
 @lru_cache(maxsize=None)
 def _accepts(workload: str, version: str, param: str) -> bool:
     return param in inspect.signature(get_kernel(workload, version).fn).parameters
@@ -100,7 +88,8 @@ def _resolve(workload: str, version: str, params: IDGParams,
              obs: Observation, w_rank=None):
     """Apply the API-boundary correctness guards; returns (version, w_rank),
     w_rank None meaning the kernel's default rank (or no rank, for a kernel
-    that takes none). The semantics of idg_tpu/ops/api.py:_resolve:
+    that takes none), as a `Resolved` that also carries the guard's |μ·n|
+    bound. The semantics of idg_tpu/ops/api.py:_resolve:
 
     1. A channel-recurrence kernel assumes uniform wavenumber spacing; on
        non-uniform input it falls back, with a warning, to its registered
@@ -135,7 +124,7 @@ def _resolve(workload: str, version: str, params: IDGParams,
 
     takes_rank = _accepts(workload, version, "w_rank")
     # a host pass over the observation's w values; the direct kernels never read it
-    need = None
+    need, bound = None, math.inf
     if takes_rank or entry.fixed_w_rank is not None:
         bound = max_mu_n(params, obs)
         trace.keep_bound(f"idg.w_mu_n.{workload}", bound)
@@ -149,7 +138,7 @@ def _resolve(workload: str, version: str, params: IDGParams,
                     f"{W_TAYLOR_TOL:g}); results may miss the 1e-5 gate",
                     stacklevel=4,
                 )
-            return version, w_rank
+            return Resolved(version, w_rank, bound)
         warnings.warn(
             f"{workload} {version} takes no w_rank"
             + (f" (fixed w-term rank {entry.fixed_w_rank})" if entry.fixed_w_rank else "")
@@ -164,7 +153,7 @@ def _resolve(workload: str, version: str, params: IDGParams,
                 "full-phase kernel (cuda_v1 / torch_v2)"
             )
         default = inspect.signature(entry.fn).parameters["w_rank"].default
-        return version, (need if need > default else None)
+        return Resolved(version, need if need > default else None, bound)
     if entry.fixed_w_rank is not None and (need is None or need > entry.fixed_w_rank):
         if need is None or entry.fallback is None:
             # past MAX_W_RANK no low-rank rung meets the gate, and with no
@@ -182,8 +171,9 @@ def _resolve(workload: str, version: str, params: IDGParams,
             f"falling back to {entry.fallback}",
             stacklevel=4,
         )
-        return entry.fallback, (need if _accepts(workload, entry.fallback, "w_rank") else None)
-    return version, None
+        return Resolved(entry.fallback,
+                        need if _accepts(workload, entry.fallback, "w_rank") else None, bound)
+    return Resolved(version, None, bound)
 
 
 def _rank_args(workload: str, version: str, w_rank) -> tuple:
@@ -200,8 +190,8 @@ def run_gridder(params: IDGParams, obs: Observation, version: str = "cuda_v6",
                 w_rank=None, device="cuda") -> torch.Tensor:
     """Run a gridder kernel on `device`; returns c64[S, P, N, N] there."""
     dev = resolve_device(device)
-    version, w_rank = _resolve("gridder", version, params, obs, w_rank)
-    stg = stage(params, obs, dev)
+    version, w_rank = resolved = _resolve("gridder", version, params, obs, w_rank)
+    stg = stage(params, obs, dev, mu_n_bound=resolved.mu_n)
     fn = get_kernel("gridder", version).fn
     return fn(params, stg, *_rank_args("gridder", version, w_rank))
 
@@ -210,8 +200,8 @@ def run_degridder(params: IDGParams, obs: Observation, subgrids,
                   version: str = "cuda_v7", w_rank=None, device="cuda") -> torch.Tensor:
     """Run a degridder kernel on `device`; returns c64[S, T, C, P] there."""
     dev = resolve_device(device)
-    version, w_rank = _resolve("degridder", version, params, obs, w_rank)
-    stg = stage(params, obs, dev, with_vis=False)
+    version, w_rank = resolved = _resolve("degridder", version, params, obs, w_rank)
+    stg = stage(params, obs, dev, with_vis=False, mu_n_bound=resolved.mu_n)
     sub = torch.as_tensor(np.ascontiguousarray(subgrids, np.complex64), device=dev)
     fn = get_kernel("degridder", version).fn
     return fn(params, stg, sub, *_rank_args("degridder", version, w_rank))
@@ -224,13 +214,13 @@ def staged_runner(workload: str, version: str, params: IDGParams, obs: Observati
     times launches on pre-staged device buffers the same way,
     app/CUDA/util.cpp:109-126). The API guards apply here too."""
     dev = resolve_device(device)
-    version, w_rank = _resolve(workload, version, params, obs, w_rank)
+    version, w_rank = resolved = _resolve(workload, version, params, obs, w_rank)
     fn = get_kernel(workload, version).fn
     rank = _rank_args(workload, version, w_rank)
     if workload == "gridder":
-        return fn, (params, stage(params, obs, dev), *rank)
+        return fn, (params, stage(params, obs, dev, mu_n_bound=resolved.mu_n), *rank)
     # the degridder has no visibility input: leave the 1.6 GB behind
-    stg = stage(params, obs, dev, with_vis=False)
+    stg = stage(params, obs, dev, with_vis=False, mu_n_bound=resolved.mu_n)
     sub = torch.as_tensor(np.ascontiguousarray(subgrids, np.complex64), device=dev)
     return fn, (params, stg, sub, *rank)
 
@@ -288,12 +278,13 @@ def staged_gridder_pieces_runner(params: IDGParams, obs: Observation, version: s
     from .cuda.gridder import gridder_cuda_v6_pieces
 
     dev = resolve_device(device)
-    version, w_rank = _resolve("gridder", version, params, obs, w_rank)
+    version, w_rank = resolved = _resolve("gridder", version, params, obs, w_rank)
     if version not in PIECES_GRIDDERS:
         return None, None, version
     oyx_dev = torch.as_tensor(np.asarray(oyx, np.int32), device=dev)
     rank = _rank_args("gridder", version, w_rank)
-    return gridder_cuda_v6_pieces, (params, stage(params, obs, dev), oyx_dev, *rank), version
+    stg = stage(params, obs, dev, mu_n_bound=resolved.mu_n)
+    return gridder_cuda_v6_pieces, (params, stg, oyx_dev, *rank), version
 
 
 def staged_degridder_consumer(params: IDGParams, obs: Observation,
@@ -302,10 +293,10 @@ def staged_degridder_consumer(params: IDGParams, obs: Observation,
     degrids c64[S, P, N, N] uv subgrids produced on the device (e.g. by
     the grid extraction). The observation is staged once, vis-free."""
     dev = resolve_device(device)
-    version, w_rank = _resolve("degridder", version, params, obs, w_rank)
+    version, w_rank = resolved = _resolve("degridder", version, params, obs, w_rank)
     kernel = get_kernel("degridder", version).fn
     rank = _rank_args("degridder", version, w_rank)
-    stg = stage(params, obs, dev, with_vis=False)
+    stg = stage(params, obs, dev, with_vis=False, mu_n_bound=resolved.mu_n)
     return (lambda sub: kernel(params, stg, sub, *rank)), version
 
 
@@ -321,12 +312,12 @@ def staged_degridder_pieces_chunk_consumers(params: IDGParams, obs: Observation,
     compile-size device. Returns (None, None, version) when the resolved
     version has no fused prologue."""
     dev = resolve_device(device)
-    version, w_rank = _resolve("degridder", version, params, obs, w_rank)
+    version, w_rank = resolved = _resolve("degridder", version, params, obs, w_rank)
     if version not in FUSED_DEGRIDDERS:
         return None, None, version
     kernel = get_kernel("degridder", version).fn
     rank = _rank_args("degridder", version, w_rank)
-    stg = stage(params, obs, dev, with_vis=False)
+    stg = stage(params, obs, dev, with_vis=False, mu_n_bound=resolved.mu_n)
     oyx_dev = torch.as_tensor(np.asarray(oyx, np.int32), device=dev)
 
     def consumer(pieces):

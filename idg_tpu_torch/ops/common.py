@@ -127,6 +127,30 @@ def n_powers(n: torch.Tensor, w_rank: int):
     return powers
 
 
+def max_mu_n(params: IDGParams, obs: Observation) -> float:
+    """Host-side upper bound on |μ·n| = |(w_off − w·k)·n|, the argument of
+    the kernels' rank-w Taylor of e^{iμ·n}, from per-subgrid w and k
+    extremes (idg_tpu/ops/api.py:61 semantics)."""
+    w = np.asarray(obs.uvw, np.float64)[..., 2].reshape(-1)
+    k = np.asarray(obs.wavenumbers, np.float64)
+    md = obs.metadata
+    t = params.nr_timesteps_subgrid
+    idx = np.asarray(md.time_offset, np.int64)[:, None] + np.arange(t)
+    ws = w[idx]                                        # [S, T]
+    w_lo, w_hi = ws.min(axis=1), ws.max(axis=1)        # [S]
+    k_lo, k_hi = float(k.min()), float(k.max())
+    wk = np.stack([w_lo * k_lo, w_lo * k_hi, w_hi * k_lo, w_hi * k_hi])
+    wk_lo, wk_hi = wk.min(axis=0), wk.max(axis=0)      # [S]
+    z = np.asarray(md.coord_z, np.float64)
+    w_off = 2.0 * np.pi * float(params.w_step) * (z + 0.5)
+    mu_abs = float(np.maximum(np.abs(w_off - wk_lo), np.abs(w_off - wk_hi)).max())
+    # n_max over the subgrid (math.hpp:19-24 stable form), f64
+    half = params.image_size / 2.0
+    tmp = 2.0 * half * half  # l² + m² at the subgrid corner
+    n_max = tmp / (1.0 + math.sqrt(max(0.0, 1.0 - tmp))) if tmp <= 1.0 else 1.0
+    return float(mu_abs * n_max)
+
+
 def uniform_channel_spacing(wavenumbers) -> bool:
     """True if the wavenumbers are uniformly spaced up to f32 quantization:
     deviations up to 4 ulp(max|k|) from the best uniform fit pass, real
@@ -167,6 +191,10 @@ class Staged:
     coord_x: torch.Tensor        # i32[S] (the full-phase formulations' `phase_offset_exact`)
     coord_y: torch.Tensor        # i32[S]
     coord_z: torch.Tensor        # i32[S]
+    # a host bound on |μ·n| over these rows (`max_mu_n`), inf where none is
+    # known: K1 picks its passes a Taylor rank from it (ops/precision.py:
+    # gridder_three_pass_ranks), with no reduction on the device
+    mu_n_bound: float = math.inf
 
     @property
     def device(self) -> torch.device:
@@ -196,7 +224,8 @@ def _check_indices(params: IDGParams, obs: Observation) -> None:
 
 
 @span("idg.stage.copy")
-def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) -> Staged:
+def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True,
+          mu_n_bound: float | None = None) -> Staged:
     """Stage an observation on `device` for the kernels. Its metadata is
     host numpy; its arrays are host numpy or tensors, those already on
     `device` in their dtype taken without a copy (the sharded builders'
@@ -205,7 +234,10 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
     Gathers the per-subgrid time windows (skipped when the layout is
     canonical), forms μ = w_off − w·k and the exact phase-offset parts.
     `with_vis=False` leaves the visibilities behind: the degridder has no
-    visibility input, and at the default problem they are 1.6 GB."""
+    visibility input, and at the default problem they are 1.6 GB.
+    `mu_n_bound` is the rows' |μ·n| bound where the caller has it (the
+    guard's, ops/api.py:_resolve, or inf for none); None computes it here
+    from the host uvw (`max_mu_n`)."""
     _check_indices(params, obs)
     device = torch.device(device)
     md = obs.metadata
@@ -233,6 +265,8 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
     mu = w_off[:, None, None] - uvw[:, :, 2, None] * k[None, None, :]
     po_x, po_y = phase_offset_parts(params, tmd)
     l, m, n = lmn_grids(params.subgrid_size, params.image_size, device)
+    if mu_n_bound is None:
+        mu_n_bound = max_mu_n(params, obs)
     return Staged(
         uvw=uvw.contiguous(),
         vis=vis.contiguous() if with_vis else None,
@@ -252,11 +286,13 @@ def stage(params: IDGParams, obs: Observation, device, with_vis: bool = True) ->
         coord_x=tmd.coord_x,
         coord_y=tmd.coord_y,
         coord_z=tmd.coord_z,
+        mu_n_bound=float(mu_n_bound),
     )
 
 
 def slice_staged(stg: Staged, lo: int, hi: int) -> Staged:
-    """The subgrids [lo, hi) of a staging (shared planes pass through)."""
+    """The subgrids [lo, hi) of a staging (shared planes and the |μ·n| bound,
+    still a bound of these rows, pass through)."""
     per_subgrid = ("uvw", "vis", "mu", "w_off", "po_x", "po_y",
                    "aterm_index", "station1", "station2", "coord_x", "coord_y", "coord_z")
     return dataclasses.replace(stg, **{

@@ -37,8 +37,8 @@ _L = ctypes.c_longlong
 # pointer args, integer args, then the stream, per entry point (the
 # occupancy query: N, then the int it writes)
 SIGNATURES = {
-    "idg_gridder_v6": [_P] * 15 + [_I] * 6 + [_P],
-    "idg_gridder_v6_pieces": [_P] * 18 + [_I] * 6 + [_P],
+    "idg_gridder_v6": [_P] * 15 + [_I] * 7 + [_P],
+    "idg_gridder_v6_pieces": [_P] * 18 + [_I] * 7 + [_P],
     "idg_degridder_v7": [_P] * 15 + [_I] * 6 + [_P],
     "idg_degridder_v7_fused": [_P] * 18 + [_I] * 6 + [_P],
     "idg_grid_add": [_P] * 4 + [_I] * 4 + [_P],

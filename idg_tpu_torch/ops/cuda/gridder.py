@@ -1,7 +1,8 @@
 """Gridder `cuda_v6`: the hand-written CUDA kernel K1 (csrc/gridder.cu, the
-separable product on the TF32 tensor cores in three passes, precision mode
-"3xtf32" of ops/precision.py) and its plain PyTorch version (float32
-throughout, the kernel's reference), in two forms: uv subgrids
+separable product on the TF32 tensor cores, precision mode "3xtf32" of
+ops/precision.py or hi·hi alone, a Taylor rank at a time as
+ops/precision.py:gridder_three_pass_ranks picks) and its plain PyTorch
+version (float32 throughout, the kernel's reference), in two forms: uv subgrids
 (`gridder_cuda_v6`) and, with the fused grid-stage epilogue, block-rolled
 image-domain pieces (`gridder_cuda_v6_pieces`).
 
@@ -18,6 +19,7 @@ from ...config import IDGParams
 from ...utils import trace
 from ..common import MAX_W_RANK, Staged, n_powers
 from ..grid import dft_split_factors_on, pieces_from_subgrids
+from ..precision import gridder_three_pass_ranks, tf32_passes
 from ..registry import register
 from . import build
 
@@ -25,6 +27,7 @@ DEFAULT_W_RANK = 2
 SUBGRID_SIZES = (16, 32)   # the N the kernels are compiled for
 PLAIN_CHUNK = 32           # subgrids per plain-version step (bounds temporaries)
 RANK_COUNTER = "idg.w_rank.gridder"   # K1's launches by Taylor rank (utils/trace.py)
+PASS_COUNTER = "idg.w_passes.gridder"   # and by TF32 product passes a tile
 
 
 def taylor_coefficients(mu: torch.Tensor, w_rank: int):
@@ -154,22 +157,34 @@ def ptr(t: torch.Tensor) -> int:
     return (torch.view_as_real(t) if t.is_complex() else t).data_ptr()
 
 
+def _count(w_rank: int, three_ranks: int) -> None:
+    """One K1 launch (or plain call) under RANK_COUNTER by its Taylor rank
+    and under PASS_COUNTER by its TF32 passes a tile."""
+    trace.count_rank(RANK_COUNTER, w_rank)
+    trace.count_rank(PASS_COUNTER, tf32_passes(three_ranks, w_rank))
+
+
 @register(
     "gridder", "cuda_v6",
     "CUDA C++ separable-phasor gridder, the product on the TF32 tensor cores "
-    "(wgmma, three passes; exact per-channel sincos, rank-w Taylor of e^{iμn}); "
+    "(wgmma, three passes, hi·hi alone for small Taylor terms; exact per-channel "
+    "sincos, rank-w Taylor of e^{iμn}); "
     "counterpart of pallas_v6",
     family="cuda", uniform_channels=False,
 )
 def gridder_cuda_v6(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK):
     """Gridder on a staging: the plain version for a CPU staging, the CUDA
     kernel for a CUDA staging. Returns c64[S, P, N, N] on the staging's
-    device. `gridder_cuda_v6.launches` counts kernel launches, and
-    RANK_COUNTER each launch (or plain call) by its Taylor rank."""
+    device. Each Taylor rank takes three TF32 passes or one, as the
+    staging's |μ·n| bound lets ops/precision.py:gridder_three_pass_ranks
+    choose. `gridder_cuda_v6.launches` counts kernel launches, and
+    RANK_COUNTER and PASS_COUNTER each launch (or plain call) by its Taylor
+    rank and by its passes a tile."""
     _check_staged(params, stg, w_rank)
     device = stg.device
+    three_ranks = gridder_three_pass_ranks(stg.mu_n_bound, w_rank)
     if device.type == "cpu":
-        trace.count_rank(RANK_COUNTER, w_rank)
+        _count(w_rank, three_ranks)
         return gridder_plain(params, stg, w_rank)
     if device.type != "cuda":
         raise ValueError(f"gridder_cuda_v6 runs on cpu or cuda, not {device}")
@@ -186,12 +201,12 @@ def gridder_cuda_v6(params: IDGParams, stg: Staged, w_rank: int = DEFAULT_W_RANK
             ptr(stg.po_x), ptr(stg.po_y), ptr(stg.l), ptr(stg.m), ptr(stg.n),
             ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(out),
-            S, T, C, N, stg.aterms.shape[1], w_rank,
+            S, T, C, N, stg.aterms.shape[1], w_rank, three_ranks,
             torch.cuda.current_stream(device).cuda_stream,
         )
     build.check(rc, "gridder_cuda_v6")
     gridder_cuda_v6.launches += 1
-    trace.count_rank(RANK_COUNTER, w_rank)
+    _count(w_rank, three_ranks)
     return out
 
 
@@ -230,16 +245,18 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
     ops/grid.py:subgrids_to_grid_ranges(tiles=...) adds into the grid.
     `oyx` is the i32[S, 2] per-subgrid roll (ops/grid.py:roll_offsets) on
     the staging's device. `gridder_cuda_v6_pieces.launches` counts kernel
-    launches, and RANK_COUNTER (`idg.w_rank.gridder`) each launch (or
-    plain call) by its Taylor rank. While a profiler records, one launch in
+    launches, and RANK_COUNTER (`idg.w_rank.gridder`) and PASS_COUNTER
+    (`idg.w_passes.gridder`) each launch (or plain call) by its Taylor rank
+    and by its TF32 passes a tile. While a profiler records, one launch in
     utils/trace.py:PROBE_EVERY runs probed (utils/trace.py:probe)."""
     _check_staged(params, stg, w_rank)
     device = stg.device
     S, T, C = stg.nr_subgrids, params.nr_timesteps_subgrid, params.nr_channels
     N, P = params.subgrid_size, params.nr_correlations
     _check_tensor("oyx", oyx, torch.int32, (S, 2), device)
+    three_ranks = gridder_three_pass_ranks(stg.mu_n_bound, w_rank)
     if device.type == "cpu":
-        trace.count_rank(RANK_COUNTER, w_rank)
+        _count(w_rank, three_ranks)
         return gridder_v6_pieces_plain(params, stg, oyx, w_rank)
     if device.type != "cuda":
         raise ValueError(f"gridder_cuda_v6_pieces runs on cpu or cuda, not {device}")
@@ -257,12 +274,12 @@ def gridder_cuda_v6_pieces(params: IDGParams, stg: Staged, oyx: torch.Tensor,
             ptr(stg.sph), ptr(stg.aterms), ptr(stg.aterm_index), ptr(stg.station1),
             ptr(stg.station2), ptr(oyx), ptr(wr), ptr(out),
             None if probe is None else ptr(probe),
-            S, T, C, N, stg.aterms.shape[1], w_rank,
+            S, T, C, N, stg.aterms.shape[1], w_rank, three_ranks,
             torch.cuda.current_stream(device).cuda_stream,
         )
     build.check(rc, "gridder_cuda_v6_pieces")
     gridder_cuda_v6_pieces.launches += 1
-    trace.count_rank(RANK_COUNTER, w_rank)
+    _count(w_rank, three_ranks)
     return out
 
 

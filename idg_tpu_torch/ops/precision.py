@@ -27,13 +27,27 @@ cuda_v4, cuda_v5 and degridder cuda_v6 as bf16 ``wgmma``
 (csrc/gridder_sep_bf16.cu, degridder_sep_bf16.cu, degridder_polstack.cu);
 K1 and K2 split with ``tf32_rn`` (csrc/wgmma.cuh), the rounding of
 `split_tf32`.
+
+K1 (gridder cuda_v6) picks its passes per Taylor rank by its own rule,
+`gridder_three_pass_ranks`: "3xtf32" for rank 0, hi·hi alone for rank 1
+at rank ≤ 2, and above rank 2 hi·hi alone for the highest ranks, the small
+terms that the staged rows' |μ·n| bound keeps under the guard's tolerance,
+"3xtf32" for the rest.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .api import W_TAYLOR_TOL
+
 MODES = ("highest", "3x", "3x2k", "default", "3xtf32")
+
+# relative error of one TF32 pass, hi·hi: each operand rounded to 10
+# explicit bits (`cvt.rna`, at most 2^-11 relative), so 2^-10 a product
+TF32_PASS_ERROR = 2.0 ** -10
 
 
 def rank_precisions(w_rank: int) -> tuple:
@@ -54,6 +68,43 @@ def degridder_precisions(w_rank: int) -> tuple:
     one bf16 pass for the rank-1 correction at rank ≤ 2, "3x2k" for every
     rank of a guard-escalated rank."""
     return ("3x2k", "default") if w_rank <= 2 else ("3x2k",) * w_rank
+
+
+def gridder_three_pass_ranks(bound: float, w_rank: int, tol: float = W_TAYLOR_TOL) -> int:
+    """K1's passes per Taylor rank: ranks r below the count returned take
+    three TF32 passes ("3xtf32"), the others hi·hi alone. `bound` is an
+    upper bound on |μ·n| over the staged rows (inf where none is known).
+
+    At w_rank ≤ 2, whatever the bound: rank 0 three passes, rank 1 hi·hi
+    (the guard keeps |μ·n| < 2.45e-3 there, so its error is at most
+    2.45e-3 · 2^-10 = 2.4e-6 of the signal). Above rank 2, rank r's term is
+    at most bound^r / r! of the signal and hi·hi alone is off by at most
+    TF32_PASS_ERROR of it: ranks go to hi·hi alone from the highest down
+    while their summed error, Σ bound^r / r! · 2^-10, stays below `tol`
+    (the truncation the guard already accepts, ops/api.py:W_TAYLOR_TOL),
+    and every rank below the first that does not fit takes three passes.
+    Rank 0 always does. So the three-pass ranks are always the lowest ones,
+    and K1 takes their count (csrc/gridder.cu:k1_three_passes). At
+    |μ·n| = 0.1689 and rank 5 ranks 3 and 4 take one pass: 3, 11 passes a
+    tile instead of 15.
+
+    K1's policy alone: the bf16 rungs' `rank_precisions` and
+    `degridder_precisions` mirror the JAX package, and K2 keeps its own
+    (csrc/wgmma.cuh:three_passes)."""
+    if w_rank <= 2:
+        return 1
+    spent = 0.0
+    for r in range(w_rank - 1, 0, -1):
+        spent += bound ** r / math.factorial(r) * TF32_PASS_ERROR
+        if not spent < tol:
+            return r + 1
+    return 1
+
+
+def tf32_passes(three_ranks: int, w_rank: int) -> int:
+    """TF32 product passes a tile of K1 at `w_rank` when its first
+    `three_ranks` ranks take three passes and the others one."""
+    return w_rank + 2 * three_ranks
 
 
 def rank_mode(precisions: tuple, r: int) -> str:

@@ -53,6 +53,11 @@ from .distributed import (_local_rows, _real, data_axes, distribute_observation,
                           distribute_subgrids, flat_axis_index, hierarchical_psum)
 from .mesh import pad_to_multiple
 
+# The ranks' stagings carry no |μ·n| bound (ops/common.py:Staged.mu_n_bound):
+# the mesh runs K1 at rank 2, whose passes read none, and at an escalated
+# rank an unknown bound keeps three TF32 passes on every Taylor rank.
+MESH_MU_N_BOUND = float("inf")
+
 
 def _obs_specs() -> tuple[str, ...]:
     """The per-subgrid fields of an Observation besides the metadata, all of
@@ -120,7 +125,8 @@ def shard_staged_inputs(params: IDGParams, obs: Observation, mesh: DeviceMesh,
     degridder's staging leaves the visibilities behind."""
     local, s_pad = distribute_observation(params, obs, mesh)
     local = _localize_time_offset(local, params, mesh)
-    stg = stage(params, local, device, with_vis=workload == "gridder")
+    stg = stage(params, local, device, with_vis=workload == "gridder",
+                mu_n_bound=MESH_MU_N_BOUND)
     sub = None
     if subgrids is not None:
         sub = torch.as_tensor(distribute_subgrids(subgrids, mesh, s_pad), device=stg.device)
@@ -144,7 +150,7 @@ def _stage_local(params: IDGParams, obs: Observation, mesh: DeviceMesh,
                  with_vis: bool = True) -> Staged:
     """Stage the rank's rows on their device, time offsets rebased."""
     return stage(params, _localize_time_offset(obs, params, mesh), obs.uvw.device,
-                 with_vis=with_vis)
+                 with_vis=with_vis, mu_n_bound=MESH_MU_N_BOUND)
 
 
 def sharded_gridder_staged(params: IDGParams, mesh: DeviceMesh, version: str,

@@ -29,8 +29,8 @@ the fused K1 and K2, and the profiler window.
     count_rank(name, rank), keep_bound(name, value)
                     the w-term's tallies, host-side dict updates with no
                     device work: `count_rank` adds one launch to the Taylor
-                    rank it ran, `keep_bound` keeps a guard's newest |μ·n|
-                    bound.
+                    rank (or the pass count) it ran, `keep_bound` keeps a
+                    guard's newest |μ·n| bound.
     snapshot()      the spans' aggregates and each kernel's probe sums,
                     copied to the host once, and, where intervals were
                     kept, each counter's count and median ms; on rank 0 of
@@ -52,7 +52,9 @@ guards, ops/common.py's staging), the pass spans `idg.gridder`,
 w-term's tallies: `idg.w_rank.gridder`, {Taylor rank: launches} of the
 gridder's K1 (ops/cuda/gridder.py: `gridder_cuda_v6` and
 `gridder_cuda_v6_pieces`, a call of their plain versions on the CPU
-counting as one), and `idg.w_mu_n.<workload>`, the |μ·n| bound the guard
+counting as one), `idg.w_passes.gridder`, {TF32 product passes a tile:
+launches} of the same (ops/precision.py:gridder_three_pass_ranks), and
+`idg.w_mu_n.<workload>`, the |μ·n| bound the guard
 computed last for that workload (ops/api.py:_resolve). No span runs inside
 a loop over subgrids or tiles.
 """

@@ -4,7 +4,7 @@
 and K10 (vadd) of one checkout on one CUDA card, for A/B comparisons of two
 versions of the kernels (the direct rungs: scripts/time_direct.py).
 
-    [SUBGRID_SIZE=16] python scripts/time_kernels.py ROOT TAG [k1,k2,k4,polstack,vadd]
+    [SUBGRID_SIZE=16] python scripts/time_kernels.py ROOT TAG [k1,k2,k1w,k4,polstack,vadd]
 
 ROOT is a checkout of the repository (the current one, or the parent commit
 unpacked with `git archive` into a directory that .gitignore lists); its
@@ -15,8 +15,10 @@ subgrids of the default problem (the IDGParams env knobs apply; vadd:
 exact, at n = 2^28) and its time on the full problem (min over windows of
 back-to-back launches): for k1 and k2 both forms and K3's share, the fused
 form's time less the non-fused one's, beside one torch.fft.fft2 over the
-subgrids; for k4 on random block-rolled pieces of the block-sorted default
-and LOFAR-4096 problems (GRID_SIZE=4096, NR_STATIONS=27; against its plain
+subgrids; for k1w K1's two forms at the guard's Taylor rank on the inputs
+of the cell default.grid-wterm (benchmark/, seed 2700027001); for k4 on
+random block-rolled pieces of the block-sorted default and LOFAR-4096
+problems (GRID_SIZE=4096, NR_STATIONS=27; against its plain
 version on all of LOFAR-4096's, and two launches compared bit for bit),
 with its resident blocks an SM where the checkout can query them, the
 masked pieces + K6 beside it on LOFAR-4096, and the gridded pipeline's pass
@@ -35,7 +37,7 @@ import time
 
 def main(argv) -> int:
     root, tag = argv[1], argv[2]
-    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "k4", "polstack", "vadd"]
+    chosen = argv[3].split(",") if len(argv) > 3 else ["k1", "k2", "k1w", "k4", "polstack", "vadd"]
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -119,6 +121,48 @@ def main(argv) -> int:
                 print(f"{tag} K3 in {fused}: {times[fused] - times[base]:+.3f} ms over "
                       f"{base}; torch.fft.fft2 {fft_ms:.3f} ms (N = {params.subgrid_size})",
                       flush=True)
+        del stg, small
+        torch.cuda.empty_cache()
+
+    if "k1w" in chosen:
+        # K1 both forms at the guard's rank on the w-term cell's inputs
+        # (benchmark/recipes/grid_wterm.py, block-sorted as the cell runs
+        # them); a checkout without a staged |μ·n| bound takes three TF32
+        # passes on every rank
+        from benchmark import catalog, passes
+        from idg_tpu_torch.ops.api import _resolve
+
+        cell = catalog.load_cell("default.grid-wterm")
+        problem = cell.problem
+        recipe = catalog.load_recipe(cell.traffic["recipe"])
+        inp = recipe.make_inputs(problem, cell.traffic, 2700027001, "cuda")
+        obs, params = passes.block_sorted(problem, inp), passes.params(problem)
+        del inp
+        rank = _resolve("gridder", "cuda_v6", params, obs)[1]
+        stg = stage(params, obs, "cuda")
+        md = obs.metadata
+        oyx = torch.as_tensor(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size,
+                                                 params.subgrid_size), device="cuda")
+        del obs
+        bound = getattr(stg, "mu_n_bound", None)
+        try:
+            from idg_tpu_torch.ops.precision import gridder_three_pass_ranks, tf32_passes
+            tiles = tf32_passes(gridder_three_pass_ranks(bound, rank), rank)
+        except ImportError:
+            tiles = 3 * rank
+        print(f"{tag} k1w: rank {rank}, |mu n| bound {bound}, {tiles} TF32 passes a tile",
+              flush=True)
+        k = 512
+        small = slice_staged(stg, 0, k)
+        for name, kernel, plain, small_args, full_args in (
+                ("gridder_cuda_v6", kernels.gridder_cuda_v6, kernels.gridder_plain,
+                 (params, small, rank), (params, stg, rank)),
+                ("gridder_cuda_v6_pieces", kernels.gridder_cuda_v6_pieces,
+                 kernels.gridder_v6_pieces_plain, (params, small, oyx[:k], rank),
+                 (params, stg, oyx, rank))):
+            err = check_error(kernel(*small_args), plain(*small_args), verbose=False).mean_error
+            print(f"{tag} k1w {name} rank {rank}: {ms(kernel, *full_args):.3f} ms, "
+                  f"vs plain {err:.3e}", flush=True)
         del stg, small
         torch.cuda.empty_cache()
 

@@ -183,20 +183,48 @@ def test_k1_fused_matches_plain_at_every_rank(card, n, rank, form):
     (the lhs the 64-row operand) at every rank, N = 16 the transposed one;
     at N = 32 above rank 3 the block has one stage, and at rank 4 the fused
     epilogue fills it. On the small problem (C = 7) and on the correctness
-    problem (T = 128, C = 16)."""
-    for channels, w_scale in ((7, 1000.0), (16, "check-1000")):
+    problem (T = 128, C = 16) at w_scale 1000 (|μ·n| 0.051 / 0.035: above
+    rank 2 ranks 2 and up take hi·hi alone), and on the small problem at
+    w_scale 2000 (0.103: ranks 3 and up alone, as in the w-term cell at
+    ranks 4 and 5, 10 and 11 passes a tile). Each launch is tallied by the
+    passes its staging's bound gives; beside each error, the same launch
+    with every rank in three passes (an unknown bound) is printed and
+    gated."""
+    from idg_tpu_torch.ops.cuda.gridder import PASS_COUNTER
+    from idg_tpu_torch.ops.precision import gridder_three_pass_ranks, tf32_passes
+    from idg_tpu_torch.utils import trace
+
+    for channels, w_scale in ((7, 1000.0), (16, "check-1000"), (7, 2000.0)):
         params, obs, _, _ = _inputs(n, channels, w_scale)
         md = obs.metadata
         oyx = torch.from_numpy(tgrid.roll_offsets(md.coord_x, md.coord_y, params.grid_size, n))
         stg_cpu, stg_gpu = stage(params, obs, "cpu"), stage(params, obs, card)
+        passes, passes3 = (tf32_passes(gridder_three_pass_ranks(bound, rank), rank)
+                           for bound in (stg_gpu.mu_n_bound, math.inf))
+        if w_scale == 2000.0 and rank in (4, 5):
+            assert passes == {4: 10, 5: 11}[rank], passes
+
+        def run(stg):
+            if form == "fused":
+                return kernels.gridder_cuda_v6_pieces(params, stg, oyx.to(card), rank)
+            return kernels.gridder_cuda_v6(params, stg, rank)
+
+        trace.reset()
+        got = run(stg_gpu)
+        assert trace.snapshot()["w_term"][PASS_COUNTER] == {passes: 1}
+        got3 = run(dataclasses.replace(stg_gpu, mu_n_bound=math.inf))
         if form == "fused":
-            got = kernels.gridder_cuda_v6_pieces(params, stg_gpu, oyx.to(card), rank)
             want = kernels.gridder_v6_pieces_plain(params, stg_cpu, oyx, rank)
         else:
-            got = kernels.gridder_cuda_v6(params, stg_gpu, rank)
             want = kernels.gridder_plain(params, stg_cpu, rank)
         torch.cuda.synchronize()
+        trace.reset()
+        err, err3 = (check_error(x, want, verbose=False).mean_error for x in (got, got3))
+        print(f"K1 {form} N = {n} rank {rank} w_scale {w_scale} |mu n| "
+              f"{stg_gpu.mu_n_bound:.4g}: {passes} passes {err:.3e}, "
+              f"{passes3} passes {err3:.3e}")
         _gate(got, want, K1_EVERY_RANK_GATE)
+        _gate(got3, want, K1_EVERY_RANK_GATE)
 
 
 @pytest.mark.cuda
